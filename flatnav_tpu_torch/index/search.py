@@ -1,0 +1,328 @@
+"""Batched greedy beam search over the flat navigable-small-world graph.
+
+Counterpart of flatnav_tpu/index/search.py. A whole batch of queries
+advances in lockstep: each hop expands the best `expand_factor` unexpanded
+entries of every query's sorted ef-wide beam, scores their neighbors and
+merges the fresh ones back (the reference's beamSearch +
+processCandidateNode, Index.h:606-707). A query is done when its beam holds
+no unexpanded entry; the loop ends when every query is done or the hop cap
+is reached.
+
+The port keeps the JAX package's default behaviour and only that:
+
+  * visited state is the "history" dedup: a candidate is fresh unless it is
+    in the beam or was expanded before. Nodes evicted from the beam
+    unexpanded can be scored again, so `distance_computations` reads a
+    little higher than the reference's.
+  * membership tests run as sorted lookups (`torch.searchsorted`) and the
+    in-hop dedup is sort based; the JAX package's compare forms give the
+    same masks. The beam merge is a stable sort with beam entries first on
+    ties, which is bit-identical to its rank-and-gather merge.
+  * the entry scan ("initializeSearch", Index.h:845-870) scores the
+    `num_initializations` strided rows with one matmul (ENTRY_IMPL
+    "matmul"). Its rounding differs from the hop's direct form, so the
+    entry point can differ from the JAX package's on a near tie.
+  * the JAX package's search options that its Index never sets
+    (`compact_width`, `m_search`, `max_hops`, `links_block`) are not
+    ported: every hop scores all E*M links and the hop cap is the default.
+
+The hop's scorer is `gather_distances` (kernel K2) for float tables; integer
+tables keep the exact int32 path.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from flatnav_tpu_torch.ops.distances import (
+    MetricType,
+    _is_int,
+    pairwise_distances,
+    query_block_distances,
+)
+from flatnav_tpu_torch.ops.gather_distance import gather_distances
+
+_INT_SENTINEL = 2**31 - 1
+
+
+class BeamResults(NamedTuple):
+    dists: torch.Tensor  # [B, ef] ascending, +inf padding
+    ids: torch.Tensor  # [B, ef] node ids (meaningless where dist == +inf)
+    dist_computations: torch.Tensor  # scalar int64
+    hops: torch.Tensor  # scalar int64: total expansions across the batch
+
+
+class SearchResults(NamedTuple):
+    dists: torch.Tensor  # [B, K]
+    labels: torch.Tensor  # [B, K]
+    dist_computations: int
+    hops: int
+
+
+# ---------------------------------------------------------------------------
+# Device-memory guard: batched_search estimates the hop working set from
+# the shapes and splits the query batch when it would not fit the card
+# (queries are independent, so results are unchanged). A configuration that
+# cannot fit one query raises ValueError before anything launches.
+# ---------------------------------------------------------------------------
+
+
+def _device_mem_limit(device) -> int | None:
+    """Bytes of the card's memory; None on the CPU, which pages."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return torch.cuda.mem_get_info(device)[1]
+
+
+def _hop_cap(ef: int, e_f: int) -> int:
+    """Hops a search runs at most: enough to expand every beam entry of a
+    wide beam; a query stops earlier once its beam holds no unexpanded
+    entry."""
+    return max((2 * ef + 128) // e_f, 16)
+
+
+def _search_temp_bytes(b: int, ef: int, e_f: int, m: int, d: int) -> int:
+    """Estimated bytes of per-hop intermediates for a B-query dispatch that
+    expands `e_f` entries of `m` links a hop (the JAX package's accounting,
+    kept as a conservative bound): the [B, E*M, d] scoring block twice, the
+    merge, the expanded-id history and the sorts."""
+    em = e_f * m
+    score = 2 * b * em * d * 4
+    merge = b * ef * min(em, ef) * 4
+    hist = b * _hop_cap(ef, e_f) * e_f * 4
+    sorts = 3 * b * (ef + em) * 4
+    return score + merge + hist + sorts
+
+
+def safe_query_batch(
+    b: int,
+    ef: int,
+    *,
+    m: int,
+    d: int,
+    expand_factor: int = 1,
+    table_bytes: int = 0,
+    device="cpu",
+) -> int:
+    """Largest per-dispatch query sub-batch whose estimated working set fits
+    the card (`torch.cuda.mem_get_info`); `b` unchanged on the CPU. Raises
+    ValueError when even a single query cannot fit."""
+    limit = _device_mem_limit(device)
+    if not limit:
+        return b
+    avail = 0.85 * (limit - table_bytes)
+    e_f = max(min(expand_factor, ef), 1)
+    em = e_f * m
+
+    def need(sub):
+        return _search_temp_bytes(sub, ef, e_f, m, d)
+
+    sub = b
+    while sub > 1 and need(sub) > avail:
+        sub //= 2
+    if need(sub) > avail:
+        raise ValueError(
+            f"search config cannot fit device memory even at batch=1: "
+            f"ef={ef}, expand_factor={expand_factor} (E*M={em}), d={d} "
+            f"needs ~{need(1)/1e9:.2f} GB of hop working set per query "
+            f"against ~{avail/1e9:.2f} GB available beside the "
+            f"{table_bytes/1e9:.2f} GB table. Reduce ef or expand_factor."
+        )
+    return sub
+
+
+def _first_occurrence(ids: torch.Tensor) -> torch.Tensor:
+    """Mask of the first occurrence of each value per row ([B, C] -> bool):
+    a stable sort makes duplicates adjacent, lowest position first."""
+    order = torch.argsort(ids, dim=1, stable=True)
+    sorted_ids = ids.gather(1, order)
+    first = torch.ones_like(ids, dtype=torch.bool)
+    first[:, 1:] = sorted_ids[:, 1:] != sorted_ids[:, :-1]
+    return torch.empty_like(first).scatter_(1, order, first)
+
+
+def _sorted_member(sorted_tab: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Row-wise membership of x [B, C] in sorted_tab [B, W] (ascending)."""
+    w = sorted_tab.shape[1]
+    pos = torch.searchsorted(sorted_tab, x.contiguous())
+    hit = sorted_tab.gather(1, pos.clamp(max=w - 1))
+    return (pos < w) & (hit == x)
+
+
+def _merge_sorted(beam, new, ef: int):
+    """Merge the sorted beam [B, ef] with sorted new entries [B, M] into a
+    sorted [B, ef] beam (the top-k eviction of Index.h:693-704); ties keep
+    beam entries first."""
+    all_d, all_i, all_e = (torch.cat(p, dim=1) for p in zip(beam, new))
+    order = torch.argsort(all_d, dim=1, stable=True)[:, :ef]
+    return all_d.gather(1, order), all_i.gather(1, order), all_e.gather(1, order)
+
+
+def beam_search_core(
+    links: torch.Tensor,
+    num_nodes: int,
+    batch: int,
+    score_block,
+    entry_block,
+    *,
+    ef: int,
+    num_initializations: int = 100,
+    expand_factor: int = 1,
+) -> BeamResults:
+    """Distance-backend-agnostic beam search loop.
+
+    `score_block(ids [B, C] int32) -> [B, C] float32` scores node ids[b, c]
+    against query b; `entry_block(cand [NI]) -> [B, NI]` scores the entry
+    candidates that every query shares."""
+    m = links.shape[1]
+    b = batch
+    dev = links.device
+    e_f = max(min(expand_factor, ef), 1)
+    hop_cap = _hop_cap(ef, e_f)
+
+    ni = num_initializations
+    step = max(num_nodes // ni, 1)
+    cand = torch.arange(ni, dtype=torch.int32, device=dev) * step
+    cand_valid = cand < num_nodes
+    cand = torch.where(cand_valid, cand, 0)
+    d0 = torch.where(cand_valid[None, :], entry_block(cand), float("inf"))
+    best = torch.argmin(d0, dim=1)
+    beam_d = torch.full((b, ef), float("inf"), device=dev)
+    beam_d[:, 0] = d0.gather(1, best[:, None])[:, 0]
+    beam_i = torch.zeros((b, ef), dtype=torch.int32, device=dev)
+    beam_i[:, 0] = cand[best]
+    beam_e = torch.ones((b, ef), dtype=torch.bool, device=dev)
+    beam_e[:, 0] = False
+    # expanded-id history, -1 padded, appended hop by hop
+    visited = torch.full((b, hop_cap * e_f), -1, dtype=torch.int32, device=dev)
+
+    # the reference counts num_initializations up front (Index.h:857-859)
+    # plus 1 for the entry node (Index.h:619)
+    dcomp = torch.tensor(b * (ni + 1), dtype=torch.int64, device=dev)
+    hops = torch.zeros((), dtype=torch.int64, device=dev)
+    pos = torch.arange(ef, device=dev)
+
+    it = 0
+    while it < hop_cap and bool((~beam_e).any()):
+        unexp = ~beam_e
+        if e_f == 1:
+            sel = unexp.to(torch.int8).argmax(dim=1, keepdim=True)
+            sel_valid = unexp.any(dim=1, keepdim=True)
+        else:
+            cand_pos = torch.where(unexp, pos, ef)
+            sel = torch.topk(cand_pos, e_f, dim=1, largest=False).values
+            sel_valid = sel < ef
+        sel = sel.clamp(max=ef - 1)
+        cur_ids = torch.where(sel_valid, beam_i.gather(1, sel), 0)
+        hit = ((pos[None, :, None] == sel[:, None, :]) & sel_valid[:, None, :]).any(2)
+        beam_e = beam_e | hit
+
+        nbrs = links[cur_ids.reshape(-1).long()].reshape(b, e_f * m)
+        valid_src = sel_valid.repeat_interleave(m, dim=1)
+        visited[:, it * e_f : (it + 1) * e_f] = torch.where(sel_valid, cur_ids, -1)
+        beam_tab = torch.where(torch.isfinite(beam_d), beam_i, _INT_SENTINEL)
+        in_beam = _sorted_member(beam_tab.sort(dim=1).values, nbrs)
+        in_hist = _sorted_member(visited.sort(dim=1).values, nbrs)
+        fresh = ~(in_beam | in_hist) & valid_src & _first_occurrence(nbrs)
+        nd = torch.where(fresh, score_block(nbrs), float("inf"))
+        dcomp = dcomp + fresh.sum()
+        hops = hops + sel_valid.sum()
+
+        # sort the new entries, keep at most ef of them, merge into the beam
+        order = torch.argsort(nd, dim=1, stable=True)[:, :ef]
+        new = (nd.gather(1, order), nbrs.gather(1, order), (~fresh).gather(1, order))
+        beam_d, beam_i, beam_e = _merge_sorted((beam_d, beam_i, beam_e), new, ef)
+        it += 1
+    return BeamResults(beam_d, beam_i, dcomp, hops)
+
+
+def beam_search(
+    vectors: torch.Tensor,
+    links: torch.Tensor,
+    num_nodes: int,
+    queries: torch.Tensor,
+    *,
+    ef: int,
+    metric: MetricType = MetricType.L2,
+    num_initializations: int = 100,
+    expand_factor: int = 1,
+) -> BeamResults:
+    """Batched beam search over raw stored vectors; returns the ef-wide
+    beam per query."""
+    # integer queries against an integer table keep the exact int32 path
+    if not (_is_int(queries) and _is_int(vectors)):
+        queries = queries.to(torch.float32)
+
+    if _is_int(vectors):
+        def score_block(ids):
+            return query_block_distances(queries, vectors[ids.long()], metric)
+    else:
+        def score_block(ids):
+            return gather_distances(vectors, ids, queries, metric)
+
+    def entry_block(cand):
+        # one [NI, d] gather + one matmul for all B x NI entry distances
+        return pairwise_distances(queries, vectors[cand.long()], metric)
+
+    return beam_search_core(
+        links,
+        num_nodes,
+        queries.shape[0],
+        score_block,
+        entry_block,
+        ef=ef,
+        num_initializations=num_initializations,
+        expand_factor=expand_factor,
+    )
+
+
+def batched_search(
+    vectors: torch.Tensor,
+    links: torch.Tensor,
+    labels: torch.Tensor,
+    num_nodes: int,
+    queries: torch.Tensor,
+    *,
+    k: int,
+    ef: int,
+    metric: MetricType = MetricType.L2,
+    num_initializations: int = 100,
+    expand_factor: int = 1,
+) -> SearchResults:
+    """Top-K search: Index::search (Index.h:387-409) over a query batch,
+    split into sub-batches where the memory guard asks for it."""
+    b = queries.shape[0]
+    ef = max(ef, k)
+    table_bytes = (
+        vectors.numel() * vectors.element_size() + links.numel() * 4 + labels.numel() * 4
+    )
+    sub = safe_query_batch(
+        b, ef, m=links.shape[1], d=vectors.shape[1], expand_factor=expand_factor,
+        table_bytes=table_bytes, device=vectors.device,
+    )
+    dists, labs, dcomp, hops = [], [], 0, 0
+    for lo in range(0, b, sub):
+        beam = beam_search(
+            vectors, links, num_nodes, queries[lo : lo + sub], ef=ef,
+            metric=metric, num_initializations=num_initializations,
+            expand_factor=expand_factor,
+        )
+        top_d, top_i = beam.dists[:, :k], beam.ids[:, :k]
+        dists.append(top_d)
+        labs.append(torch.where(torch.isfinite(top_d), labels[top_i.long()], -1))
+        dcomp += int(beam.dist_computations)
+        hops += int(beam.hops)
+    return SearchResults(torch.cat(dists), torch.cat(labs), dcomp, hops)
+
+
+__all__ = [
+    "BeamResults",
+    "SearchResults",
+    "batched_search",
+    "beam_search",
+    "beam_search_core",
+    "safe_query_batch",
+]
