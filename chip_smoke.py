@@ -14,7 +14,9 @@ Phases, in order; any failure raises and the script exits nonzero:
      L2/IP, f32/bf16/f16 tables, ragged B x C; K1 scan_buckets bit-equal on
      uint8/int8 tables and within 1e-5 of the key magnitude on bf16 tables
      (ids equal wherever a bucket's best two keys differ by more), at
-     d in {37, 128}, L2/IP, N not a multiple of the tile and n_valid < N.
+     d in {37, 64, 128, 256}, L2/IP, N not a multiple of the tile and
+     n_valid < N; bf16 at d in {64, 128, 256} takes K1's "wgmma" variant,
+     the rest its "mma" variant (the wrapper picks by shape).
   3. the main path at full width, the README configuration: clustered data
      (seed 0x5EED), N=100,000, d=128 float32, L2, M=32, ef_construction=100,
      4,096 queries, K=10: create -> add -> search(ef_search=192) ->
@@ -23,9 +25,13 @@ Phases, in order; any failure raises and the script exits nonzero:
      zeroed just before and read just after; recall@10 of every engine is
      measured against the port's brute_force_knn. Each kernel is then held
      against its plain version on the arguments the path gave it (a search
-     hop for K2, the first scan of search_exact for K1).
+     hop and a build wave of B=8192, C=1024 for K2, the first scan of
+     search_exact for K1), and K2 is timed at both.
   4. the scan at SIFT1M scale: search_exact(rerank=32) and fused_knn over a
-     1M x 128 float32 clustered table with B=4096, with recall and K1 time.
+     1M x 128 float32 clustered table with B=4096, with recall and K1 time;
+     then the stage profiler's stages (bench/profile_fused_stages.py:
+     matmul, phaseA = K1', phaseAB, norerank, full, gather) on the same
+     table, with K1's launches counted over them.
 
 The line before the last is one JSON object with each kernel's launches,
 error against its plain version, times and bound; the last line is
@@ -36,37 +42,16 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-#: H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOP_PER_S = 989e12
-F32_FLOP_PER_S = 67e12
 
 
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
-
-
-def timed(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Mean milliseconds per call, by CUDA events around `reps` calls."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def recall(found, truth) -> float:
@@ -80,12 +65,9 @@ def phase_build():
     import torch
 
     from flatnav_tpu_torch import _build
+    from flatnav_tpu_torch.bench.measure import card
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    print(smi)
+    print(card())
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
@@ -164,6 +146,7 @@ def phase_kernels(rng):
 
     from flatnav_tpu_torch.ops import MetricType
     from flatnav_tpu_torch.ops.distances import squared_norms
+    from flatnav_tpu_torch.ops.fused_scan import scan_buckets
 
     dev = torch.device("cuda")
     k2_err = 0.0
@@ -180,7 +163,7 @@ def phase_kernels(rng):
 
     k1_err = 0.0
     t, L = 2048, 16
-    for d in (37, 128):
+    for d in (37, 64, 128, 256):
         for metric in (MetricType.L2, MetricType.IP):
             for dtype in (torch.uint8, torch.int8, torch.bfloat16):
                 n, nlim, qc = 10000, 9000, 100  # n not a multiple of t
@@ -195,7 +178,8 @@ def phase_kernels(rng):
                        else torch.zeros(n, device=dev))
                 k1_err = max(k1_err, k1_against_plain(
                     q, rows, pen, nlim, t, L, f"d={d} {metric.value} {dtype}"))
-    print(f"K1 scan_buckets: 8-bit bit-equal, bf16 max abs err {k1_err:g} on 12 cases")
+    print(f"K1 scan_buckets: 8-bit bit-equal, bf16 max abs err {k1_err:g} on 24 cases; "
+          f"launches by variant {scan_buckets.variants}")
     return k2_err, k1_err
 
 
@@ -221,6 +205,11 @@ class CallRecorder:
     def launches(self, value):
         self.fn.launches = value
 
+    def __getattr__(self, name):  # the wrapper's other counters
+        if name == "fn":
+            raise AttributeError(name)
+        return getattr(self.fn, name)
+
     def __call__(self, *args):
         if self.keep(*args):
             self.seen += 1
@@ -245,10 +234,14 @@ def phase_main_path():
     data, queries = clustered(n, d, nq, seed=0x5EED)
     _, gt = brute_force_knn(torch.from_numpy(data).cuda(), torch.from_numpy(queries).cuda(), k)
     gt = gt.cpu().numpy()
-    # keep the 4th full-width hop of the graph search (its first hops start
-    # from the few entry points and repeat rows far more than a typical
-    # hop) and the first K1 call of search_exact
-    hop_rec = CallRecorder(gather_distances, lambda v, ids, q, mt: ids.shape[1] == 16 * m, nth=4)
+    # keep the 88th build-wave call (B=8192, C=1024; about half of the
+    # build's, in its 7th wave: the first waves score a nearly empty graph),
+    # the 4th full-width hop of the graph search (its first hops start from
+    # the few entry points and repeat rows far more than a typical hop) and
+    # the first K1 call of search_exact
+    wave_rec = CallRecorder(gather_distances, lambda v, ids, q, mt: tuple(ids.shape) == (8192, 1024),
+                            nth=88)
+    hop_rec = CallRecorder(wave_rec, lambda v, ids, q, mt: ids.shape[1] == 16 * m, nth=4)
     scan_rec = CallRecorder(scan_buckets)
     search_mod.gather_distances = hop_rec
     fused_mod.scan_buckets = scan_rec
@@ -256,6 +249,7 @@ def phase_main_path():
     try:
         gather_distances.launches = 0
         scan_buckets.launches = 0
+        scan_buckets.variants = dict.fromkeys(scan_buckets.variants, 0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         index = flatnav_tpu_torch.index.create(
@@ -286,7 +280,8 @@ def phase_main_path():
         d2, l2 = index2.search(queries, K=k, ef_search=ef)
         torch.cuda.synchronize()
         launches = {"gather_distances": gather_distances.launches,
-                    "scan_buckets": scan_buckets.launches}
+                    "scan_buckets": scan_buckets.launches,
+                    "scan_buckets variants": dict(scan_buckets.variants)}
     finally:
         search_mod.gather_distances = gather_distances
         fused_mod.scan_buckets = scan_buckets
@@ -297,37 +292,44 @@ def phase_main_path():
         print(f"  {name}: recall@10 {r['recall']:.4f}  qps {r['qps']:.1f}  ({r['s']:.3f} s)")
     print(f"  launches on the main path: {launches}")
     check(launches["gather_distances"] > 0 and launches["scan_buckets"] > 0, "kernel launches")
+    check(launches["scan_buckets variants"]["mma"] == 0, "the main path's K1 takes the wgmma variant")
     check(out["exact"]["recall"] == 1.0, "exact recall == 1.0")
     check(out["fused"]["recall"] >= 0.98, "fused recall >= 0.98")
     check(out["graph"]["recall"] >= 0.90, "graph recall >= 0.90")
-    check(hop_rec.args is not None and scan_rec.args is not None,
-          "a search hop and a scan call were recorded")
+    check(hop_rec.args is not None and wave_rec.args is not None and scan_rec.args is not None,
+          "a search hop, a build wave and a scan call were recorded")
     # each kernel against its plain version at the shapes the path gave it
     k2_err = k2_against_plain(*hop_rec.args, "main-path hop")
+    k2_err = max(k2_err, k2_against_plain(*wave_rec.args, "main-path build wave"))
     q_bf, rows, pen, nlim, t, L = scan_rec.args
     k1_err = k1_against_plain(*scan_rec.args, "main-path scan")
-    print(f"  at the main path's shapes: K2 B x C = {tuple(hop_rec.args[1].shape)} bit-equal; "
+    print(f"  at the main path's shapes: K2 B x C = {tuple(hop_rec.args[1].shape)} and "
+          f"{tuple(wave_rec.args[1].shape)} bit-equal; "
           f"K1 q {tuple(q_bf.shape)} rows {tuple(rows.shape)} {rows.dtype} T={t} L={L} "
           f"max abs err {k1_err:g}")
-    return launches, hop_rec.args, k1_err, k2_err
+    return launches, hop_rec.args, wave_rec.args, k1_err, k2_err
 
 
-def k2_timing(hop):
+def k2_timing(call, what):
+    """K2's time at a recorded call, beside its plain version and its bound:
+    the distinct rows it gathers, its ids, queries and output, each moved
+    once. Also prints the gathered-bytes rate, B*C*d*size over the time."""
     import torch
 
+    from flatnav_tpu_torch.bench.measure import gather_bound, timed
     from flatnav_tpu_torch.ops.gather_distance import gather_distances, gather_distances_plain
 
-    vectors, ids, queries, metric = hop
+    vectors, ids, queries, metric = call
     b, c = ids.shape
     d = vectors.shape[1]
     ms = timed(lambda: gather_distances(vectors, ids, queries, metric))
-    plain_ms = timed(lambda: gather_distances_plain(vectors, ids, queries, metric))
+    plain_ms = timed(lambda: gather_distances_plain(vectors, ids, queries, metric), reps=3, warmup=1)
     uniq = int(torch.unique(ids).numel())
-    nbytes = uniq * d * vectors.element_size() + ids.numel() * 4 + queries.numel() * 4 + b * c * 4
-    bound = max(nbytes / HBM_BYTES_PER_S, 3 * b * c * d / F32_FLOP_PER_S) * 1e3
-    by = "bytes" if nbytes / HBM_BYTES_PER_S >= 3 * b * c * d / F32_FLOP_PER_S else "operations"
-    print(f"K2 at a main-path hop B={b} C={c} d={d} ({uniq} distinct rows): "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+    bound, by = gather_bound(vectors, ids, queries)
+    gathered = b * c * d * vectors.element_size()
+    print(f"K2 at a main-path {what} B={b} C={c} d={d} ({uniq} distinct rows): "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, distinct-row bound {bound:.4f} ms ({by}); "
+          f"gathered {gathered / 1e6:.1f} MB at {gathered / (ms * 1e-3) / 1e12:.2f} TB/s")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": None}
 
@@ -340,8 +342,10 @@ def phase_scan_1m():
     from flatnav_tpu_torch.bench.synth import clustered
     from flatnav_tpu_torch.index.graph import graph_from_numpy
     from flatnav_tpu_torch.ops import MetricType, brute_force_knn, fused_knn
+    from flatnav_tpu_torch.bench import profile_fused_stages as pfs
+    from flatnav_tpu_torch.bench.measure import card, scan_bound, timed
     from flatnav_tpu_torch.ops.fused_scan import (
-        _SUMMARY_BYTES, _QB, _TILE, _pick_shapes, scan_buckets, scan_buckets_plain,
+        _SUMMARY_BYTES, _QB, _TILE, _pick_shapes, scan_buckets, scan_buckets_plain, scan_variant,
     )
     from flatnav_tpu_torch.ops.distances import squared_norms
 
@@ -378,20 +382,31 @@ def phase_scan_1m():
     check(qc >= b, "one query chunk at B=4096")
     ds_bf, q_bf = ds.to(torch.bfloat16), q.to(torch.bfloat16)
     pen = squared_norms(ds_bf)
+    check(scan_variant(q_bf, ds_bf, pen, t, L) == "wgmma", "the 1M scan takes the wgmma variant")
     err = k1_against_plain(q_bf, ds_bf, pen, n, t, L, "1M")
     print(f"K1 at 1M x {d}, B={b}, L={L}, T={t}: max abs err {err:g}")
     ms = timed(lambda: scan_buckets(q_bf, ds_bf, pen, n, t, L), reps=5, warmup=1)
     plain_ms = timed(lambda: scan_buckets_plain(q_bf, ds_bf, pen, n, t, L), reps=3, warmup=1)
     lib_ms = timed(lambda: torch.matmul(q_bf, ds_bf.T), reps=5, warmup=1)
-    nb = -(-n // t) * (t // L)
-    flops = 2 * b * n * d
-    nbytes = b * d * 2 + n * d * 2 + n * 4 + b * nb * 8
-    bound = max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
-    by = "operations" if flops / BF16_FLOP_PER_S >= nbytes / HBM_BYTES_PER_S else "bytes"
+    bound, by = scan_bound(b, n, d, -(-n // t) * (t // L))
     print(f"K1 time {ms:.3f} ms, plain {plain_ms:.3f} ms, bf16 matmul yardstick "
           f"{lib_ms:.3f} ms, bound {bound:.3f} ms ({by})")
-    return err, {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                 "library_ms": lib_ms}
+    k1 = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+
+    # the stage profiler (K1') on the same table: its phaseA is K1 at these
+    # shapes, launched through the tool's own stage functions
+    fns, _ = pfs.stages(ds, q, k=10, rerank=32, l=L, tile=t)
+    print(f"stage profiler at N={n} d={d} B={b} L={L} T={t} ({card()})")
+    scan_buckets.launches = 0
+    scan_buckets.variants = dict.fromkeys(scan_buckets.variants, 0)
+    stage_ms = pfs.time_stages(fns, 2.0 * b * n * d, reps=2)
+    torch.cuda.synchronize()
+    stage_launches = scan_buckets.launches
+    check(stage_launches > 0 and scan_buckets.variants["mma"] == 0,
+          "the stage profiler launched K1's wgmma variant")
+    k1p = {"ms": stage_ms["phaseA"], "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+           "library_ms": stage_ms["matmul"], "launches": stage_launches}
+    return err, k1, k1p
 
 
 def main() -> int:
@@ -411,24 +426,31 @@ def main() -> int:
     phase_build()
     rng = np.random.default_rng(0xF1A7)
     k2_err, k1_err = phase_kernels(rng)
-    k1 = {"name": "scan_buckets", "route": "cuda",
+    k1 = {"name": "scan_buckets", "route": "cuda", "variant": "wgmma",
           "source": "flatnav_tpu_torch/csrc/fused_scan.cu",
           "replaces": "flatnav_tpu/ops/fused_scan.py:159"}
-    k2 = {"name": "gather_distances", "route": "cuda",
+    k2 = {"name": "gather_distances", "route": "cuda", "variant": "registers",
           "source": "flatnav_tpu_torch/csrc/gather_distance.cu",
           "replaces": "flatnav_tpu/ops/gather_distance.py:54"}
+    k1p = {"name": "profile_fused_stages phaseA", "route": "cuda", "variant": "wgmma",
+           "source": "flatnav_tpu_torch/csrc/fused_scan.cu",
+           "replaces": "tools/profile_fused_stages.py:70"}
+    kernels = [k1, k2]
     if not quick:
-        launches, hop, k1_main, k2_main = phase_main_path()
-        k2.update(k2_timing(hop))
-        err_1m, k1_times = phase_scan_1m()
+        launches, hop, wave, k1_main, k2_main = phase_main_path()
+        k2.update(k2_timing(hop, "search hop"))
+        k2["build_wave"] = k2_timing(wave, "build wave")
+        err_1m, k1_times, k1p_times = phase_scan_1m()
         k1.update(k1_times)
+        k1p.update(k1p_times, max_abs_err=err_1m)
+        kernels.append(k1p)
         k1["launches"] = launches["scan_buckets"]
         k2["launches"] = launches["gather_distances"]
         k1_err = max(k1_err, k1_main, err_1m)
         k2_err = max(k2_err, k2_main)
     k1["max_abs_err"], k2["max_abs_err"] = k1_err, k2_err
     print(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [k1, k2]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -11,9 +11,12 @@ distances (or, with `exact_rerank=False`, ranked by the kernel's own keys).
 On a CUDA tensor `scan_buckets` launches the hand-written kernel
 `csrc/fused_scan.cu` (it replaces the Pallas TPU kernel
 flatnav_tpu/ops/fused_scan.py:_scan_kernel); on a CPU tensor it runs
-`scan_buckets_plain`. A true neighbor is lost only if another row of its
-L-bucket scores better, or if bf16 rounding pushes its bucket past the
-shortlist; both are measured against the exact oracle in the tests.
+`scan_buckets_plain`. The kernel has two variants, chosen by shape alone
+(`scan_variant`): "wgmma" (TMA-fed wgmma, bf16 rows with d % 8 == 0 and
+64 <= d <= 384) and "mma" (mma.sync; 8-bit rows and every other shape).
+A true neighbor is lost only if another row of its L-bucket scores better,
+or if bf16 rounding pushes its bucket past the shortlist; both are measured
+against the exact oracle in the tests.
 """
 
 from __future__ import annotations
@@ -37,11 +40,13 @@ _QB = 512
 _TILE = 2048
 _L = 16
 
-#: the kernel streams each [T, d] row tile from L2 for every query sub-tile;
-#: 4 MiB per tile keeps the tiles of the blocks in flight inside the 50 MB
-#: L2. Keys and the running min/argmin live in registers and the kernel's
-#: shared memory is fixed (two 32 x 64 f32 tiles), so no other budget
-#: bounds T.
+#: each block streams its 128-bucket share of a [T, d] row tile from L2, once
+#: for every query block (128 queries for "wgmma", 64 for "mma"); 4 MiB per
+#: tile keeps the tiles of the blocks in flight inside the 50 MB L2. Keys and
+#: the running min/argmin live in registers, and the kernel's shared memory
+#: holds the block's query tile and 64-column slices of 128 rows (an 8-stage
+#: ring for "wgmma", one buffer for "mma"), none of which grows with T, so no
+#: other budget bounds T.
 _ROWS_BYTES = 4 << 20
 
 #: bound on the phase-A [qc, N/L] f32+i32 bucket summary. Past it L grows
@@ -57,6 +62,14 @@ _ROW_TYPES = {torch.bfloat16: 0, torch.uint8: 1, torch.int8: 2}
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def _tile_request(tile_size: int, bucket_l: int | None) -> int:
+    """The row tile `fused_knn` asks `_pick_shapes` for: at the default
+    tile and a given L, at least 128*L rows (one 128-bucket tile)."""
+    if bucket_l is None or tile_size != _TILE:
+        return tile_size
+    return max(_TILE, 128 * bucket_l)
 
 
 def _pick_shapes(
@@ -141,9 +154,31 @@ def _lib():
     fn = _build.load("fused_scan").fused_scan_launch
     if not fn.argtypes:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, i, p, i, i, i, i, i, i, i, p, p, p]
+        fn.argtypes = [p, p, i, p, i, i, i, i, i, i, i, i, p, p, p]
         fn.restype = ctypes.c_int
     return fn
+
+
+#: kernel variant -> its number in the C interface
+VARIANTS = {"mma": 0, "wgmma": 1}
+
+
+def scan_variant(q_bf: torch.Tensor, rows: torch.Tensor, pen: torch.Tensor, t: int, L: int) -> str:
+    """The kernel variant `scan_buckets` launches for these (contiguous)
+    arguments, by shape alone: "wgmma" takes bf16 rows whose 64 <= d <= 384
+    and d % 8 == 0 (TMA reads rows of a multiple of 16 bytes, from
+    16-byte-aligned tensors; penalties are read in 8-byte pairs) with
+    L <= 256 slices (packed eight bits each) and S = T/L a multiple of its
+    128-bucket tile; "mma" takes the rest, 8-bit rows included. The C entry
+    only refuses a "wgmma" launch at a shape outside this rule."""
+    d = rows.shape[1]
+    ok = (
+        rows.dtype == torch.bfloat16 and d % 8 == 0 and 64 <= d <= 384 and L <= 256
+        and t % L == 0 and (t // L) % 128 == 0
+        and rows.data_ptr() % 16 == 0 and q_bf.data_ptr() % 16 == 0
+        and pen.data_ptr() % 8 == 0
+    )
+    return "wgmma" if ok else "mma"
 
 
 def scan_buckets(
@@ -155,7 +190,8 @@ def scan_buckets(
 
     q_bf [qc, d] bf16; rows [N, d] bf16, uint8 or int8; pen [N] f32 (the L2
     ||row||^2 term, zeros for IP); rows at or past `nlim` score +inf.
-    `scan_buckets.launches` counts kernel launches."""
+    `scan_buckets.launches` counts kernel launches, and
+    `scan_buckets.variants` the launches of each variant."""
     if rows.device.type == "cpu":
         return scan_buckets_plain(q_bf, rows, pen, nlim, t, L)
     if rows.dtype not in _ROW_TYPES or q_bf.dtype != torch.bfloat16:
@@ -174,20 +210,23 @@ def scan_buckets(
         raise ValueError("scan_buckets: rows, queries and pen disagree in shape")
     if not (q_bf.device == pen.device == rows.device):
         raise ValueError("scan_buckets: tensors are on different devices")
+    variant = scan_variant(q_bf, rows, pen, t, L)
     out_min = torch.empty((qc, nb), dtype=torch.float32, device=rows.device)
     out_id = torch.empty((qc, nb), dtype=torch.int32, device=rows.device)
     rc = _lib()(
         q_bf.data_ptr(), rows.data_ptr(), _ROW_TYPES[rows.dtype],
-        pen.data_ptr(), qc, n, d, min(int(nlim), n), t, L, nb,
+        pen.data_ptr(), qc, n, d, min(int(nlim), n), t, L, nb, VARIANTS[variant],
         out_min.data_ptr(), out_id.data_ptr(),
         torch.cuda.current_stream(rows.device).cuda_stream,
     )
     _build.check(rc, "scan_buckets")
     scan_buckets.launches += 1
+    scan_buckets.variants[variant] += 1
     return out_min, out_id
 
 
 scan_buckets.launches = 0
+scan_buckets.variants = dict.fromkeys(VARIANTS, 0)
 
 
 def fused_knn(
@@ -225,9 +264,7 @@ def fused_knn(
     ds_bf = dataset if native_int else dataset.to(torch.bfloat16)
 
     L, t, qb, qc = _pick_shapes(
-        n, b, d, ds_bf.element_size(),
-        tile_size if bucket_l is None or tile_size != _TILE
-        else max(_TILE, 128 * bucket_l),
+        n, b, d, ds_bf.element_size(), _tile_request(tile_size, bucket_l),
         query_block, bucket_l,
         _SUMMARY_BYTES if summary_bytes is None else summary_bytes,
     )
@@ -265,4 +302,4 @@ def fused_knn(
     return torch.cat(out_d), torch.cat(out_i)
 
 
-__all__ = ["fused_knn", "scan_buckets", "scan_buckets_plain"]
+__all__ = ["fused_knn", "scan_buckets", "scan_buckets_plain", "scan_variant"]

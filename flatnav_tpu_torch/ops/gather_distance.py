@@ -9,8 +9,9 @@ flatnav_tpu/ops/gather_distance.py:_kernel); on a CPU tensor it runs
 `gather_distances_plain`, the plain PyTorch version of the same function.
 The kernel reads each candidate row once and never materializes the
 [B, C, d] gathered block; it is bound by those row bytes (see the source).
-Both reduce over d in the fixed tree order of `_tree_sum_last`, so the
-kernel is bit-equal to the plain version.
+Both reduce over d in the fixed tree order of `_tree_sum_last` (the kernel
+in registers: in-lane adds, then warp shuffles), so the kernel is bit-equal
+to the plain version.
 """
 
 from __future__ import annotations
@@ -56,8 +57,9 @@ def gather_distances(
 ) -> torch.Tensor:
     """`dist(queries[b], vectors[ids[b, c]])` -> [B, C] float32.
 
-    vectors: [N, d] float32/bfloat16/float16; ids: [B, C] int32 in [0, N)
-    (the kernel scores an id outside that range NaN); queries: [B, d].
+    vectors: [N, d] float32/bfloat16/float16 with d <= 4096; ids: [B, C]
+    int32 in [0, N) (the kernel scores an id outside that range NaN);
+    queries: [B, d].
     `gather_distances.launches` counts kernel launches."""
     if vectors.device.type == "cpu":
         return gather_distances_plain(vectors, ids, queries, metric)

@@ -21,7 +21,7 @@ from flatnav_tpu_torch.ops import MetricType, brute_force_knn, fused_knn
 from flatnav_tpu_torch.ops.distances import squared_norms
 from flatnav_tpu_torch.ops.fused_scan import (
     _L, _QB, _ROWS_BYTES, _SUMMARY_BYTES, _TILE, _pick_shapes, _round_up,
-    scan_buckets,
+    scan_buckets, scan_variant,
 )
 
 SHAPES = dict(bucket_l=4, tile_size=2048, query_block=8, rerank=32)
@@ -164,3 +164,32 @@ def test_plain_scan_is_the_strided_bucket_min(rng, metric):
     want_min, want_id = _bucket_min_numpy(q.float().numpy(), rows, pen.numpy(), nlim, t, L)
     np.testing.assert_array_equal(got_min.numpy(), want_min.astype(np.float32))
     np.testing.assert_array_equal(got_id.numpy(), want_id)
+
+
+@pytest.mark.parametrize("dtype,d,L,want", [
+    (torch.bfloat16, 128, 16, "wgmma"), (torch.bfloat16, 64, 16, "wgmma"),
+    (torch.bfloat16, 384, 16, "wgmma"), (torch.bfloat16, 136, 16, "wgmma"),
+    (torch.bfloat16, 37, 16, "mma"), (torch.bfloat16, 56, 16, "mma"),
+    (torch.bfloat16, 392, 16, "mma"), (torch.bfloat16, 132, 16, "mma"),
+    (torch.bfloat16, 128, 512, "mma"), (torch.bfloat16, 128, 1, "wgmma"),
+    (torch.uint8, 128, 16, "mma"), (torch.int8, 128, 16, "mma"),
+])
+@pytest.mark.parametrize("s_blocks", [1, 3])
+def test_scan_variant_is_chosen_by_shape(dtype, d, L, want, s_blocks):
+    # the main path (bf16, d=128) and the 1M scan take the TMA/wgmma
+    # variant; 8-bit rows, widths TMA cannot stride and L past eight bits
+    # take the mma.sync one. T = 128 * s_blocks * L: S = T/L is whole
+    # 128-bucket tiles
+    t = 128 * s_blocks * L
+    rows = torch.zeros((4 * t, d), dtype=dtype)
+    q = torch.zeros((8, d), dtype=torch.bfloat16)
+    assert scan_variant(q, rows, torch.zeros(rows.shape[0]), t, L) == want
+
+
+@pytest.mark.parametrize("t,L", [(2048, 32), (2000, 16), (64 * 16, 16)])
+def test_scan_variant_needs_whole_bucket_tiles(t, L):
+    # S = T/L of 64 buckets, or T not a multiple of L: not the wgmma
+    # variant's 128-bucket tile
+    rows = torch.zeros((4096, 128), dtype=torch.bfloat16)
+    q = torch.zeros((8, 128), dtype=torch.bfloat16)
+    assert scan_variant(q, rows, torch.zeros(rows.shape[0]), t, L) == "mma"
