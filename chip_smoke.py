@@ -32,6 +32,28 @@ Phases, in order; any failure raises and the script exits nonzero:
      then the stage profiler's stages (bench/profile_fused_stages.py:
      matmul, phaseA = K1', phaseAB, norerank, full, gather) on the same
      table, with K1's launches counted over them.
+  5. reorder / import, on the main path's index: search(ef_search=192) is
+     recorded, then reorder(["gorder"]) and reorder(["rcm"]) (timed; the
+     native library or the Python path, as printed). The relabelled graph
+     must be the old one under one permutation of the node ids, recall@10
+     must stay within 0.005, and the share of result slots with the same
+     label is printed and held to the limit below (the entry candidates of
+     a search are rows at a fixed stride of node ids, so a relabel starts
+     some queries elsewhere). The reordered search must launch K2. The
+     links are written as a MatrixMarket file and imported into a fresh
+     index (allocate_nodes + build_graph_links): links equal, search
+     identical; save / load_index round trip identical.
+  6. the product-quantized index, the configuration of
+     benchmarks/run_bigann_10m.py (m_pq=16, nbits=8, 25 k-means iterations,
+     rerank=64): (a) train on the main path's 100k rows, PQIndex of 100k,
+     M=32, ef_construction=100, search(K=10, ef_search=192) over the 4,096
+     queries, recall@10 against brute_force_knn and against the exact ADC
+     ranking, save / load identical; (b) pq_scan_knn over phase 4's
+     1M x 128 table with B=4096: raw-vector rerank, exact-ADC rerank,
+     the 4-bit point (m_pq=16, nbits=4, packed two codes a byte) and
+     lane_packed equal to unpacked; the scan's stages and its two key
+     routes are timed. Peak device memory of the raw and the PQ build is
+     printed.
 
 The line before the last is one JSON object with each kernel's launches,
 error against its plain version, times and bound; the last line is
@@ -229,6 +251,7 @@ def phase_main_path():
     from flatnav_tpu_torch.ops import fused_scan as fused_mod
     from flatnav_tpu_torch.ops.fused_scan import scan_buckets
     from flatnav_tpu_torch.ops.gather_distance import gather_distances
+    from flatnav_tpu_torch.utils.profiling import device_memory_stats
 
     n, d, m, efc, nq, k, ef = 100_000, 128, 32, 100, 4096, 10, 192
     data, queries = clustered(n, d, nq, seed=0x5EED)
@@ -251,6 +274,7 @@ def phase_main_path():
         scan_buckets.launches = 0
         scan_buckets.variants = dict.fromkeys(scan_buckets.variants, 0)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         index = flatnav_tpu_torch.index.create(
             "l2", dim=d, dataset_size=n, max_edges_per_node=m, device="cuda"
@@ -258,6 +282,7 @@ def phase_main_path():
         index.add(data, ef_construction=efc)
         torch.cuda.synchronize()
         out["build_s"] = time.perf_counter() - t0
+        out["build_peak"] = device_memory_stats()["peak_bytes_in_use"]
         hop_rec.reset()  # keep a query hop, not a build hop
 
         def run(name, fn):
@@ -286,7 +311,9 @@ def phase_main_path():
         search_mod.gather_distances = gather_distances
         fused_mod.scan_buckets = scan_buckets
     check(np.array_equal(l1, l2) and np.array_equal(d1, d2), "reloaded search identical")
-    print(f"main path: N={n} d={d} M={m} ef_construction={efc} build {out['build_s']:.2f} s")
+    print(f"main path: N={n} d={d} M={m} ef_construction={efc} build {out['build_s']:.2f} s, "
+          f"peak device memory {out['build_peak'] / 1e6:.1f} MB, "
+          f"index_memory_bytes {index.index_memory_bytes() / 1e6:.1f} MB")
     for name in ("graph", "exact", "fused", "fusednr"):
         r = out[name]
         print(f"  {name}: recall@10 {r['recall']:.4f}  qps {r['qps']:.1f}  ({r['s']:.3f} s)")
@@ -307,7 +334,10 @@ def phase_main_path():
           f"{tuple(wave_rec.args[1].shape)} bit-equal; "
           f"K1 q {tuple(q_bf.shape)} rows {tuple(rows.shape)} {rows.dtype} T={t} L={L} "
           f"max abs err {k1_err:g}")
-    return launches, hop_rec.args, wave_rec.args, k1_err, k2_err
+    path = {"index": index, "data": data, "queries": queries, "gt": gt, "labels": l1,
+            "dists": d1, "recall": out["graph"]["recall"], "k": k, "ef": ef,
+            "build_peak": out["build_peak"]}
+    return launches, hop_rec.args, wave_rec.args, k1_err, k2_err, path
 
 
 def k2_timing(call, what):
@@ -406,7 +436,278 @@ def phase_scan_1m():
           "the stage profiler launched K1's wgmma variant")
     k1p = {"ms": stage_ms["phaseA"], "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
            "library_ms": stage_ms["matmul"], "launches": stage_launches}
-    return err, k1, k1p
+    return err, k1, k1p, {"data": data, "ds": ds, "q": q, "gt": gt}
+
+
+#: share of result slots that keep their label across reorder(["gorder",
+#: "rcm"]) on the main path's index at ef_search=192; a few points under what
+#: an NVIDIA H100 80GB HBM3 (700.00 W) gave, see PERF.md
+REORDER_SAME_SLOTS = 0.93  # the card gave 0.9555
+#: recall@10 limits of the PQ phase, a few points under what the same card
+#: gave (PERF.md): the PQ graph against true neighbours and against the exact
+#: ADC ranking, the raw-vector rerank at 8 bits and at the 4-bit point
+PQ_GRAPH_RECALL = 0.35  # the card gave 0.3873 (the exact ADC ranking itself: 0.3695)
+PQ_GRAPH_ADC_RECALL = 0.75  # the card gave 0.7966 at ef=192, 0.8631 at ef=512
+PQ8_RAW_RECALL = 0.50  # rerank=64 at 1M; the card gave 0.5266
+PQ8_RAW_RECALL_WIDE = 0.85  # rerank=1024; the card gave 0.8796
+PQ4_RAW_RECALL = 0.19  # rerank=64; the card gave 0.2162
+
+
+def phase_reorder(path):
+    """Phase 5: reorder, MatrixMarket import and save / load on the main
+    path's index."""
+    import numpy as np
+    import torch
+
+    import flatnav_tpu_torch
+    from flatnav_tpu_torch import native
+    from flatnav_tpu_torch.ops.gather_distance import gather_distances
+
+    index, queries, gt, k, ef = (path[x] for x in ("index", "queries", "gt", "k", "ef"))
+    n, m = index.num_nodes, index.max_edges_per_node
+    g = index.graph
+    old = [t[:n].clone() for t in (g.vectors, g.links, g.labels)]
+    check(torch.equal(old[2].cpu(), torch.arange(n, dtype=torch.int32)), "labels are insertion order")
+    print(f"reorder: native library {'built and loaded' if native.available() else 'absent, Python path'}")
+    secs = {}
+    for strategy in ("gorder", "rcm"):
+        t0 = time.perf_counter()
+        index.reorder([strategy])
+        torch.cuda.synchronize()
+        secs[strategy] = time.perf_counter() - t0
+    # labels were the old ids: row p now holds old node labels[p]
+    perm = torch.empty(n, dtype=torch.long, device=g.vectors.device)
+    perm[g.labels[:n].long()] = torch.arange(n, device=g.vectors.device)
+    check(torch.equal(perm.sort().values, torch.arange(n, device=perm.device)), "a permutation")
+    check(torch.equal(g.vectors[perm], old[0]) and torch.equal(g.labels[perm], old[2]),
+          "rows moved by the permutation")
+    check(torch.equal(g.links[perm].long(), perm[old[1].long()]), "links relabelled by the permutation")
+    moved = float((perm != torch.arange(n, device=perm.device)).float().mean())
+
+    gather_distances.launches = 0
+    d2, l2 = index.search(queries, K=k, ef_search=ef)
+    torch.cuda.synchronize()
+    k2_launches = gather_distances.launches
+    same = float((l2 == path["labels"]).mean())
+    r2 = recall(l2, gt)
+    print(f"reorder: gorder {secs['gorder']:.2f} s, rcm {secs['rcm']:.2f} s, {moved:.4f} of the "
+          f"nodes moved; search after: recall@10 {r2:.4f} (before {path['recall']:.4f}), same label "
+          f"in {same:.4f} of the slots, K2 launches {k2_launches}")
+    check(k2_launches > 0, "the reordered search launched K2")
+    check(abs(r2 - path["recall"]) <= 0.005, "recall@10 within 0.005 across the reorder")
+    check(same >= REORDER_SAME_SLOTS, f"same labels in >= {REORDER_SAME_SLOTS} of the slots")
+
+    with tempfile.TemporaryDirectory(dir=REPO) as tmp:
+        links = g.links[:n].cpu().numpy()
+        rows = np.repeat(np.arange(n, dtype=np.int64), m)
+        cols = links.reshape(-1).astype(np.int64)
+        keep = rows != cols
+        mtx = os.path.join(tmp, "graph.mtx")
+        t0 = time.perf_counter()
+        with open(mtx, "w") as f:
+            f.write("%%MatrixMarket matrix coordinate pattern general\n")
+            f.write(f"{n} {n} {int(keep.sum())}\n")
+            np.savetxt(f, np.stack([rows[keep] + 1, cols[keep] + 1], axis=1), fmt="%d")
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fresh = flatnav_tpu_torch.index.create(
+            "l2", dim=index.dim, dataset_size=n, max_edges_per_node=m, device="cuda")
+        fresh.allocate_nodes(g.vectors[:n].cpu().numpy(), g.labels[:n].cpu().numpy())
+        fresh.build_graph_links(mtx)
+        t_import = time.perf_counter() - t0
+        check(torch.equal(fresh.graph.links, g.links), "imported links equal")
+        d3, l3 = fresh.search(queries, K=k, ef_search=ef)
+        check(np.array_equal(l3, l2) and np.array_equal(d3, d2), "imported index searches identically")
+        npz = os.path.join(tmp, "reordered.npz")
+        index.save(npz)
+        d4, l4 = flatnav_tpu_torch.index.load_index(npz, device="cuda").search(
+            queries, K=k, ef_search=ef)
+        check(np.array_equal(l4, l2) and np.array_equal(d4, d2), "reloaded reordered index identical")
+    print(f"import: {int(keep.sum())} edges written in {t_write:.2f} s, allocate_nodes + "
+          f"build_graph_links {t_import:.2f} s; links equal, search identical; save/load identical")
+    return k2_launches
+
+
+def _adc_top(pq, queries, codes, k, chunk=512):
+    """Exact ADC ranking: the k nearest codes of each query by
+    asymmetric_distances + smallest_k, a chunk of queries at a time."""
+    import torch
+
+    from flatnav_tpu_torch.ops.distances import smallest_k
+
+    ids = torch.arange(codes.shape[0], dtype=torch.int32, device=codes.device)[None, :]
+    tops = [smallest_k(pq.asymmetric_distances(queries[lo : lo + chunk], codes), ids, k)[1]
+            for lo in range(0, queries.shape[0], chunk)]
+    return torch.cat(tops).cpu().numpy()
+
+
+def _wall(fn):
+    """-> (result, seconds) of fn() by the host clock, synchronised."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_pq_graph(path):
+    """Phase 6a: the PQ-coded graph index over the main path's data."""
+    import numpy as np
+    import torch
+
+    from flatnav_tpu_torch.quantization import PQIndex, ProductQuantizer
+    from flatnav_tpu_torch.utils.profiling import device_memory_stats
+
+    data, queries, gt, k, ef = (path[x] for x in ("data", "queries", "gt", "k", "ef"))
+    n, d = data.shape
+    nq = queries.shape[0]
+    m_pq, nbits, n_iters, m, efc = 16, 8, 25, 32, 100
+    pq, train_s = _wall(lambda: ProductQuantizer(d, m_pq, nbits).train(data, n_iters=n_iters))
+    torch.cuda.reset_peak_memory_stats()
+    index = PQIndex(pq, dataset_size=n, max_edges_per_node=m)
+    _, build_s = _wall(lambda: index.add(data, ef_construction=efc))
+    peak = device_memory_stats()["peak_bytes_in_use"]
+    (dist, lab), search_s = _wall(lambda: index.search(queries, K=k, ef_search=ef))
+    check(dist.shape == (nq, k) and np.isfinite(dist).all(), "PQ graph output")
+    adc_top = _adc_top(pq, queries, index._codes[:n], k)
+    r_true, r_ceiling, r_adc = recall(lab, gt), recall(adc_top, gt), recall(lab, adc_top)
+    with tempfile.TemporaryDirectory(dir=REPO) as tmp:
+        file = os.path.join(tmp, "pq_index.npz")
+        index.save(file)
+        d2, l2 = PQIndex.load(file).search(queries, K=k, ef_search=ef)
+    check(np.array_equal(lab, l2) and np.array_equal(dist, d2), "reloaded PQ index identical")
+    raw_bytes = path["index"].index_memory_bytes()
+    print(f"PQ graph: m_pq={m_pq} nbits={nbits} train {train_s:.2f} s ({n_iters} iterations, {n} rows), "
+          f"build {build_s:.2f} s (M={m}, ef_construction={efc}), peak device memory "
+          f"{peak / 1e6:.1f} MB (raw build {path['build_peak'] / 1e6:.1f} MB)")
+    print(f"  search ef={ef}: {nq / search_s:.1f} qps ({search_s:.3f} s); recall@10 {r_true:.4f} against "
+          f"true neighbours, exact ADC ranking {r_ceiling:.4f}, graph against the ADC ranking {r_adc:.4f}")
+    print(f"  index_memory_bytes {index.index_memory_bytes() / 1e6:.1f} MB against the raw index's "
+          f"{raw_bytes / 1e6:.1f} MB; save/load identical")
+    (_, lab_deep), deep_s = _wall(lambda: index.search(queries, K=k, ef_search=512))
+    print(f"  search ef=512: {nq / deep_s:.1f} qps; recall@10 {recall(lab_deep, gt):.4f} against true "
+          f"neighbours, {recall(lab_deep, adc_top):.4f} against the ADC ranking")
+    check(r_adc >= PQ_GRAPH_ADC_RECALL,
+          f"PQ graph recall against the exact ADC ranking >= {PQ_GRAPH_ADC_RECALL}")
+    check(recall(lab_deep, adc_top) >= r_adc, "a deeper search comes closer to the ADC ranking")
+    check(r_true >= PQ_GRAPH_RECALL, f"PQ graph recall@10 >= {PQ_GRAPH_RECALL}")
+    check(index.index_memory_bytes() < raw_bytes, "codes take less than raw vectors")
+
+
+def phase_pq_scan(table):
+    """Phase 6b: pq_scan_knn over the 1M x 128 table."""
+    import numpy as np
+    import torch
+
+    from flatnav_tpu_torch.bench.measure import BF16_FLOP_PER_S, F32_FLOP_PER_S, timed
+    from flatnav_tpu_torch.ops.distances import smallest_k
+    from flatnav_tpu_torch.ops.gather_distance import gather_distances
+    from flatnav_tpu_torch.quantization import ProductQuantizer, pack_codes_4bit, pack_codes_lanes
+    from flatnav_tpu_torch.quantization import pq as pq_mod
+    from flatnav_tpu_torch.quantization.pq import pq_scan_knn
+
+    data, ds, q, gt = (table[x] for x in ("data", "ds", "q", "gt"))
+    n, d = data.shape
+    b, k, rerank, tile = q.shape[0], 10, 64, 32768
+    pq8, train_s = _wall(lambda: ProductQuantizer(d, 16, 8).train(data[:100_000], n_iters=25))
+    codes, enc_s = _wall(lambda: pq8.encode(ds))
+    tables = pq8.adc_tables(q)
+    print(f"PQ scan: N={n} B={b} m_pq=16 nbits=8 rerank={rerank} tile={tile}; train {train_s:.2f} s, "
+          f"encode {enc_s:.2f} s, codes {codes.numel() / 1e6:.1f} MB")
+
+    def scan(c, t, **kw):
+        (dist, ids), sec = _wall(lambda: pq_scan_knn(c, t, k, rerank=rerank, tile_size=tile, **kw))
+        return dist.cpu().numpy(), ids.cpu().numpy(), sec
+
+    scan(codes, tables)  # warm-up: cuBLAS picks its kernels
+    gather_distances.launches = 0
+    _, raw_ids, raw_s = scan(codes, tables, vectors=ds, queries=q)
+    k2_launches = gather_distances.launches
+    check(k2_launches > 0, "the raw-vector rerank launched K2")
+    r_raw = recall(raw_ids, gt)
+    adc_d, adc_ids, adc_s = scan(codes, tables)
+    sub = 512  # the exact ADC ranking of a [sub, N] block fits comfortably
+    want = _adc_top(pq8, q[:sub], codes, k, chunk=128)
+    adc_same = float((adc_ids[:sub] == want).mean())
+    print(f"  8-bit: raw-vector rerank recall@10 {r_raw:.4f}, {b / raw_s:.1f} qps ({raw_s:.3f} s); "
+          f"ADC rerank {b / adc_s:.1f} qps ({adc_s:.3f} s), recall@10 {recall(adc_ids, gt):.4f}, ids "
+          f"equal to the exact ADC top-{k} in {adc_same:.4f} of the slots ({sub} queries)")
+    # the shortlist bounds the raw-vector rerank's recall: wider shortlists
+    wide = {}
+    for r_wide in (256, 1024):
+        (_, ids_w), sec_w = _wall(lambda: pq_scan_knn(
+            codes, tables, k, rerank=r_wide, tile_size=tile, vectors=ds, queries=q))
+        wide[r_wide] = recall(ids_w.cpu().numpy(), gt)
+        print(f"  8-bit: raw-vector rerank at rerank={r_wide}: recall@10 {wide[r_wide]:.4f}, "
+              f"{b / sec_w:.1f} qps ({sec_w:.3f} s)")
+    check(r_raw >= PQ8_RAW_RECALL, f"8-bit raw-rerank recall@10 >= {PQ8_RAW_RECALL} at rerank={rerank}")
+    check(r_raw <= wide[256] <= wide[1024], "a wider shortlist never lowers the recall")
+    check(wide[1024] >= PQ8_RAW_RECALL_WIDE, f"8-bit raw-rerank recall@10 >= {PQ8_RAW_RECALL_WIDE} at rerank=1024")
+    check(adc_same >= 0.99, "ADC-rerank ids equal to the exact ADC top-10 in >= 99% of slots")
+
+    flat, n_pad = pack_codes_lanes(codes.cpu().numpy(), tile=tile)
+    _, lane_ids, lane_s = scan(torch.from_numpy(flat).cuda(), tables, n_valid=n, lane_packed=True)
+    check(np.array_equal(lane_ids, adc_ids), "lane_packed ids identical to unpacked")
+    print(f"  lane_packed ({n_pad} padded rows): ids identical to unpacked ({lane_s:.3f} s)")
+
+    pq4 = ProductQuantizer(d, 16, 4).train(data[:100_000], n_iters=25)
+    codes4 = pack_codes_4bit(pq4.encode(ds))
+    tables4 = pq4.adc_tables(q)
+    scan(codes4, tables4, packed_4bit=True)
+    _, ids4, s4 = scan(codes4, tables4, vectors=ds, queries=q, packed_4bit=True)
+    r4 = recall(ids4, gt)
+    print(f"  4-bit, two codes a byte ({codes4.shape[1]} bytes a node): raw-vector rerank recall@10 "
+          f"{r4:.4f}, {b / s4:.1f} qps ({s4:.3f} s)")
+    check(r4 >= PQ4_RAW_RECALL, f"4-bit raw-rerank recall@10 >= {PQ4_RAW_RECALL}")
+
+    # the scan's stages at the 8-bit shapes, each over all tiles of the table
+    s, nc = tables.shape[1], tables.shape[2]
+    t_bf = tables.reshape(b, s * nc).to(torch.bfloat16)
+    sub_base = torch.arange(s, device=codes.device) * nc
+    onehot = torch.empty((tile, s * nc), dtype=torch.bfloat16, device=codes.device)
+    starts = [min(s0, n - tile) for s0 in range(0, n, tile)]
+
+    def fill(start):
+        return onehot.zero_().scatter_(1, codes[start : start + tile].long() + sub_base, 1.0)
+
+    key = pq_mod._scan_keys_bf16(t_bf, fill(0))
+    ids = torch.arange(tile, dtype=torch.int32, device=codes.device).expand(b, tile)
+    best = smallest_k(key, ids, rerank)
+
+    def per_tile(fn):
+        def run():
+            for st in starts:
+                fn(st)
+        return run
+
+    ms = {
+        "one-hot": timed(per_tile(fill), reps=2, warmup=1),
+        "keys, bf16 product with f32 result": timed(
+            per_tile(lambda st: pq_mod._scan_keys_bf16(t_bf, onehot)), reps=2, warmup=1),
+        "keys, f32 matmul of the rounded operands": timed(
+            per_tile(lambda st: pq_mod._scan_keys_f32(t_bf, onehot)), reps=1, warmup=1),
+        "shortlist (smallest_k)": timed(
+            per_tile(lambda st: smallest_k(
+                torch.cat([best[0], key], 1), torch.cat([best[1], ids], 1), rerank)),
+            reps=2, warmup=1),
+    }
+    ops = 2.0 * n * s * nc * b
+    print(f"  scan stages over {len(starts)} tiles (ms): " + "; ".join(f"{k_} {v:.3f}" for k_, v in ms.items()))
+    print(f"  operations 2 N S nc B = {ops:.3e}: bound {ops / BF16_FLOP_PER_S * 1e3:.3f} ms at the bf16 "
+          f"peak, {ops / F32_FLOP_PER_S * 1e3:.3f} ms at the f32 peak")
+    # the rejected route end to end, in the same process
+    shipped = pq_mod._scan_keys
+    pq_mod._scan_keys = pq_mod._scan_keys_f32
+    try:
+        _, f32_ids, f32_s = scan(codes, tables)
+    finally:
+        pq_mod._scan_keys = shipped
+    print(f"  pq_scan_knn with f32-matmul keys: {f32_s:.3f} s against {adc_s:.3f} s; ids equal in "
+          f"{float((f32_ids == adc_ids).mean()):.4f} of the slots")
+    check(float((f32_ids == adc_ids).mean()) >= 0.99, "both key routes rank alike")
+    return k2_launches
 
 
 def main() -> int:
@@ -437,10 +738,15 @@ def main() -> int:
            "replaces": "tools/profile_fused_stages.py:70"}
     kernels = [k1, k2]
     if not quick:
-        launches, hop, wave, k1_main, k2_main = phase_main_path()
+        launches, hop, wave, k1_main, k2_main, path = phase_main_path()
         k2.update(k2_timing(hop, "search hop"))
         k2["build_wave"] = k2_timing(wave, "build wave")
-        err_1m, k1_times, k1p_times = phase_scan_1m()
+        k2["launches_reordered_search"] = phase_reorder(path)
+        phase_pq_graph(path)
+        del path
+        err_1m, k1_times, k1p_times, table = phase_scan_1m()
+        k2["launches_pq_raw_rerank"] = phase_pq_scan(table)
+        del table
         k1.update(k1_times)
         k1p.update(k1p_times, max_abs_err=err_1m)
         kernels.append(k1p)

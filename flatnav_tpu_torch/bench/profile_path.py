@@ -4,6 +4,11 @@ configuration (clustered data, seed 0x5EED, d=128, L2, M=32,
 ef_construction=100, ef_search=192, K=10).
 
     python -m flatnav_tpu_torch.bench.profile_path [--n 100000] [--queries 4096]
+    python -m flatnav_tpu_torch.bench.profile_path --pq
+
+`--pq` profiles the product-quantized path on the same data instead
+(m_pq=16, nbits=8, 25 k-means iterations): the PQIndex build, its graph
+search, and `search_scan` (the ADC full-table scan, rerank=64).
 
 For each stage it prints the wall time without the profiler, the wall time
 and the summed device time under it (device busy share = device time /
@@ -64,6 +69,7 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--n", type=int, default=100_000)
     p.add_argument("--queries", type=int, default=4096)
+    p.add_argument("--pq", action="store_true", help="profile the PQ index instead")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_path: no CUDA device", file=sys.stderr)
@@ -72,6 +78,23 @@ def main(argv=None) -> int:
     data, queries = clustered(args.n, d, args.queries, seed=0x5EED)
     print(f"{torch.cuda.get_device_name(0)}; N={args.n} d={d} M={m} "
           f"ef_construction={efc} queries={args.queries} ef_search={ef} K={k}")
+
+    if args.pq:
+        from flatnav_tpu_torch.quantization import PQIndex, ProductQuantizer
+
+        pq = ProductQuantizer(d, 16, 8).train(data, n_iters=25)
+
+        def build_pq():
+            ix = PQIndex(pq, dataset_size=args.n, max_edges_per_node=m)
+            ix.add(data, ef_construction=efc)
+            return ix
+
+        pq_index = build_pq()
+        profile_stage("PQ build", build_pq)
+        profile_stage("PQ search", lambda: pq_index.search(queries, K=k, ef_search=ef))
+        profile_stage("PQ search_scan(rerank=64)",
+                      lambda: pq_index.search_scan(queries, K=k, rerank=64))
+        return 0
 
     def build():
         ix = flatnav_tpu_torch.index.create("l2", dim=d, dataset_size=args.n,

@@ -4,10 +4,6 @@ Counterpart of flatnav_tpu/index/api.py: the same `create` / `load_index`
 signatures and validation, plus `device=`. The index lives on the CUDA
 card unless the caller passes `device="cpu"`; without a card and without
 that request, `create` and `load_index` raise.
-
-Not ported yet (they need `native/` and `reorder.py`; see ROADMAP.md queue
-A): `allocate_nodes`, `build_graph_links` and `reorder` raise
-NotImplementedError.
 """
 
 from __future__ import annotations
@@ -18,6 +14,8 @@ import numpy as np
 import torch
 
 from flatnav_tpu_torch import data_type as dt
+from flatnav_tpu_torch import native
+from flatnav_tpu_torch import reorder as reorder_mod
 from flatnav_tpu_torch.index import build as build_mod
 from flatnav_tpu_torch.index import serialize as ser
 from flatnav_tpu_torch.index.graph import GraphArrays, make_empty_graph, node_size_bytes
@@ -26,12 +24,6 @@ from flatnav_tpu_torch.ops.distances import MetricType, brute_force_knn, fast_kn
 from flatnav_tpu_torch.ops.fused_scan import fused_knn
 
 _DISTANCE_TYPES = {"l2": MetricType.L2, "angular": MetricType.IP, "ip": MetricType.IP}
-
-_NOT_PORTED = (
-    "{} is not ported to flatnav_tpu_torch yet (it needs native/ and "
-    "reorder.py); see ROADMAP.md queue A"
-)
-
 
 class Index:
     """A flat navigable-small-world index (capacity fixed at creation,
@@ -329,15 +321,101 @@ class Index:
             extra={"index_data_type": self._data_type.value},
         )
 
-    # ----------------------------------------------------- not ported yet
-    def allocate_nodes(self, data, labels=None) -> "Index":
-        raise NotImplementedError(_NOT_PORTED.format("allocate_nodes"))
+    # --------------------------------------------------------------- imports
+    def allocate_nodes(
+        self, data: np.ndarray, labels: Optional[Sequence[int]] = None
+    ) -> "Index":
+        """Allocate nodes without building edges (bindings.cpp:308-324),
+        used with build_graph_links to import an externally built graph."""
+        data = np.asarray(data)
+        n = data.shape[0]
+        n0 = self.num_nodes
+        if n0 + n > self.capacity:
+            raise RuntimeError("Maximum number of nodes reached.")
+        if labels is None:
+            labels_arr = np.arange(n0, n0 + n, dtype=np.int32)
+        else:
+            labels_arr = np.asarray(labels, dtype=np.int32)
+        g = self._graph
+        g.vectors[n0 : n0 + n] = torch.from_numpy(np.ascontiguousarray(data)).to(
+            self._device, self._data_type.torch_dtype
+        )
+        g.labels[n0 : n0 + n] = torch.from_numpy(labels_arr).to(self._device)
+        g.num_nodes = n0 + n
+        return self
 
     def build_graph_links(self, mtx_filename: str) -> None:
-        raise NotImplementedError(_NOT_PORTED.format("build_graph_links"))
+        """Import edges from a MatrixMarket file (Index::buildGraphLinks,
+        Index.h:187-238): each node's first outdegree slots get its
+        neighbors; the rest stay self-loops."""
+        n = self.num_nodes
+        m = self.max_edges_per_node
+        links = native.read_mtx(mtx_filename, n, m)
+        if links is None:
+            links = _read_mtx_python(mtx_filename, n, m)
+        self._graph.links[:n] = torch.from_numpy(links).to(self._device)
 
+    # ------------------------------------------------------------- reordering
     def reorder(self, strategies: Sequence[str]) -> None:
-        raise NotImplementedError(_NOT_PORTED.format("reorder"))
+        """Graph reordering (doGraphReordering, Index.h:412-427): gorder and
+        rcm permutations applied via relabel."""
+        n = self.num_nodes
+        for strategy in strategies:
+            s = strategy.lower()
+            links = self._graph.links[:n].cpu().numpy()
+            if s == "gorder":
+                perm = reorder_mod.gorder(links, n, window_size=5)
+            elif s == "rcm":
+                perm = reorder_mod.rcm_order(links, n)
+            else:
+                raise ValueError(
+                    f"Invalid reordering method: {strategy}"
+                )  # Index.h:421-422
+            self._relabel(perm)
+
+    def _relabel(self, perm: np.ndarray) -> None:
+        """Apply permutation P (new id of old node i = perm[i]), the analog
+        of Index::relabel (Index.h:872-926): a dense permute on the index's
+        device instead of in-place cycle chasing."""
+        n = self.num_nodes
+        g = self._graph
+        perm_t = torch.from_numpy(np.asarray(perm, dtype=np.int64)).to(self._device)
+        inv = torch.empty_like(perm_t)
+        inv[perm_t] = torch.arange(n, device=self._device)
+        g.vectors[:n] = g.vectors[:n].index_select(0, inv)
+        g.labels[:n] = g.labels[:n].index_select(0, inv)
+        g.links[:n] = perm_t[g.links[:n].long()].index_select(0, inv).to(torch.int32)
+
+
+def _read_mtx_python(mtx_filename: str, n: int, m: int) -> np.ndarray:
+    """Dense [n, m] links (self-loop padded) of a MatrixMarket edge list:
+    the pure-Python parser behind `Index.build_graph_links`, which also
+    names the fault of a file the native parser refused."""
+    adjacency: List[List[int]] = [[] for _ in range(n)]
+    with open(mtx_filename) as f:
+        header = f.readline()
+        if not header.startswith("%%MatrixMarket"):
+            raise ValueError("Invalid MatrixMarket header")
+        line = f.readline()
+        while line.startswith("%"):
+            line = f.readline()
+        rows, cols, _ = (int(x) for x in line.split())
+        if rows != n or cols != n:
+            raise ValueError(
+                f"Matrix dimensions {rows}x{cols} do not match index "
+                f"size {n}"
+            )
+        for line in f:
+            if not line.strip():
+                continue
+            a, b_ = (int(x) for x in line.split()[:2])
+            # 1-indexed per MatrixMarket
+            if len(adjacency[a - 1]) < m:
+                adjacency[a - 1].append(b_ - 1)
+    links = np.repeat(np.arange(n, dtype=np.int32)[:, None], m, axis=1)
+    for i, row in enumerate(adjacency):
+        links[i, : len(row)] = row
+    return links
 
 
 def create(

@@ -11,6 +11,11 @@ products in another order than cuBLAS, so its minima agree within 1e-5 of
 the largest key magnitude and its ids on >= 99% of buckets. K1 has two
 variants chosen by shape ("wgmma" and "mma"); each case states which one
 it must take.
+
+The product-quantized index and the graph reordering hold no kernel of their
+own; their cases run the same call on the card and with device="cpu" at a
+small size and hold the two together, at the tolerances of the CPU tests
+against the JAX package.
 """
 
 import numpy as np
@@ -18,9 +23,11 @@ import pytest
 import torch
 
 import flatnav_tpu_torch
-from flatnav_tpu_torch.ops.distances import MetricType, squared_norms
+from flatnav_tpu_torch.ops.distances import MetricType, brute_force_knn, squared_norms
 from flatnav_tpu_torch.ops.fused_scan import scan_buckets, scan_buckets_plain
 from flatnav_tpu_torch.ops.gather_distance import gather_distances, gather_distances_plain
+from flatnav_tpu_torch.quantization import PQIndex, ProductQuantizer, pack_codes_4bit, pack_codes_lanes
+from flatnav_tpu_torch.quantization.pq import PQCodebook, pq_scan_knn
 
 pytestmark = pytest.mark.gpu
 
@@ -178,3 +185,140 @@ def test_lifecycle_on_card(cuda, tmp_path):
     d2, l2 = flatnav_tpu_torch.index.load_index(str(tmp_path / "g.npz")).search(q, 10, 64)
     np.testing.assert_array_equal(l1, l2)
     np.testing.assert_array_equal(d1, d2)
+
+
+def _clustered(n, d, nq, seed=11):
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((64, d)).astype(np.float32)
+    data = centers[rng.integers(0, 64, n)] + 0.3 * rng.standard_normal((n, d)).astype(np.float32)
+    queries = data[rng.choice(n, nq, replace=False)] + 0.05 * rng.standard_normal(
+        (nq, d)).astype(np.float32)
+    return data.astype(np.float32), queries.astype(np.float32)
+
+
+def _quantizers(nbits, data, cuda):
+    """One codebook, trained on the CPU, on both devices."""
+    cpu = ProductQuantizer(dim=32, num_subquantizers=8, nbits=nbits, device="cpu").train(
+        data[:1000], n_iters=8)
+    card = ProductQuantizer(dim=32, num_subquantizers=8, nbits=nbits, device=cuda)
+    card.codebook = PQCodebook(cpu.codebook.centroids.to(cuda))
+    return cpu, card
+
+
+def test_pq_train_on_card_matches_cpu(cuda):
+    # Lloyd's steps drift, so the quantizers are held by reconstruction
+    # error: within 2%; codes from one codebook identical in >= 99.9%
+    data, _ = _clustered(3000, 32, 8)
+    cpu, card = _quantizers(8, data, cuda)
+    trained = ProductQuantizer(dim=32, num_subquantizers=8).train(data[:1000], n_iters=8)
+    assert trained.device.type == "cuda" and trained.codebook.centroids.is_cuda
+    mse = lambda q: float(((q.decode(q.encode(data)).cpu().numpy() - data) ** 2).sum(1).mean())
+    assert abs(mse(trained) - mse(cpu)) <= 0.02 * mse(cpu)
+    assert (card.encode(data).cpu() == cpu.encode(data)).float().mean() >= 0.999
+    np.testing.assert_allclose(card.adc_tables(data[:8]).cpu().numpy(),
+                               cpu.adc_tables(data[:8]).numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["adc", "raw", "packed_4bit", "lane_packed", "n_valid"])
+def test_pq_scan_on_card_matches_cpu(cuda, mode):
+    # the card's bf16 product with float32 output against the CPU's float32
+    # matmul of the same rounded operands: ids equal in >= 99% of slots
+    # (exact ties of the ADC rerank exempt), distances allclose(rtol=1e-4)
+    n = 3000 if mode != "lane_packed" else 2917
+    data, queries = _clustered(n, 32, 32)
+    cpu, card = _quantizers(4 if mode == "packed_4bit" else 8, data, cuda)
+    codes = cpu.encode(data)
+    tables = cpu.adc_tables(queries)
+    kw = dict(tile_size=512, rerank=64)
+    if mode == "packed_4bit":
+        codes, kw["packed_4bit"] = pack_codes_4bit(codes), True
+    if mode == "lane_packed":
+        codes = torch.from_numpy(pack_codes_lanes(codes.numpy(), tile=512)[0])
+        kw.update(lane_packed=True, n_valid=n)
+    if mode == "n_valid":
+        kw["n_valid"] = 700
+    raw = {}
+    if mode == "raw":
+        raw = dict(vectors=torch.from_numpy(data), queries=torch.from_numpy(queries))
+    launches = gather_distances.launches
+    cd, ci = pq_scan_knn(codes, tables, 10, **kw, **raw)
+    gd, gi = pq_scan_knn(codes.to(cuda), tables.to(cuda), 10, **kw,
+                         **{k: v.to(cuda) for k, v in raw.items()})
+    assert gd.is_cuda and gather_distances.launches == launches + (mode == "raw")
+    gd, gi = gd.cpu(), gi.cpu()
+    np.testing.assert_allclose(gd.numpy(), cd.numpy(), rtol=1e-4, atol=1e-5)
+    tied = torch.zeros_like(ci, dtype=torch.bool)
+    tied[:, 1:] |= cd[:, 1:] == cd[:, :-1]
+    tied[:, :-1] |= cd[:, :-1] == cd[:, 1:]
+    tied[:, -1] |= mode != "raw"  # the last slot may tie with the one cut off
+    assert float(((gi == ci) | tied).float().mean()) >= 0.99
+    assert int(gi.max()) < kw.get("n_valid", n)
+
+
+def test_pq_index_on_card_matches_cpu(cuda, tmp_path):
+    data, queries = _clustered(3000, 32, 128)
+    cpu, card = _quantizers(8, data, cuda)
+    ix = PQIndex(cpu, dataset_size=3000, max_edges_per_node=16)
+    ix.add(data, ef_construction=64)
+    path = str(tmp_path / "pq.idx")
+    ix.save(path)
+    on_card = PQIndex.load(path)  # the card is the default
+    assert on_card.device.type == "cuda" and on_card._codes.is_cuda
+    # the same graph searched on both devices: ids equal in >= 99% of rows
+    cd, cl = ix.search(queries, K=10, ef_search=96)
+    gd, gl = on_card.search(queries, K=10, ef_search=96)
+    same = (cl == gl).all(axis=1)
+    assert same.mean() >= 0.99
+    np.testing.assert_allclose(gd[same], cd[same], rtol=1e-4, atol=1e-5)
+    sd, sl = ix.search_scan(queries, K=10, rerank=64, tile_size=512)
+    td, tl = on_card.search_scan(queries, K=10, rerank=64, tile_size=512)
+    np.testing.assert_allclose(td, sd, rtol=1e-4, atol=1e-5)
+    # built on the card from the same codebook: recall@10 within 0.02
+    built = PQIndex(card, dataset_size=3000, max_edges_per_node=16)
+    built.add(data, ef_construction=64)
+    assert built.num_nodes == 3000 and built._links.is_cuda
+    _, gt = brute_force_knn(torch.from_numpy(data), torch.from_numpy(queries), 10)
+    recall = lambda l: sum(len(set(a.tolist()) & set(b.tolist()))
+                           for a, b in zip(l, gt.numpy())) / gt.numel()
+    _, bl = built.search(queries, K=10, ef_search=96)
+    assert abs(recall(bl) - recall(cl)) <= 0.02
+
+
+def test_reorder_and_import_on_card_match_cpu(cuda, tmp_path):
+    rng = np.random.default_rng(5)
+    data = rng.standard_normal((2000, 32), dtype=np.float32)
+    q = rng.standard_normal((64, 32), dtype=np.float32)
+    cpu_ix = flatnav_tpu_torch.index.create("l2", 32, 2000, 16, device="cpu")
+    cpu_ix.add(data, ef_construction=64)
+    path = str(tmp_path / "g.npz")
+    cpu_ix.save(path)
+    card_ix = flatnav_tpu_torch.index.load_index(path)
+    assert card_ix.device.type == "cuda"
+    for ix in (cpu_ix, card_ix):
+        ix.reorder(["gorder", "rcm"])
+    # the relabel runs on each index's device and gives the same committed
+    # rows (past them a built index keeps its last wave's padding lanes, a
+    # loaded one zeros)
+    for a, b in zip((cpu_ix.graph.vectors, cpu_ix.graph.links, cpu_ix.graph.labels),
+                    (card_ix.graph.vectors, card_ix.graph.links, card_ix.graph.labels)):
+        assert torch.equal(a[:2000], b[:2000].cpu())
+    launches = gather_distances.launches
+    gd, gl = card_ix.search(q, K=10, ef_search=64)
+    assert gather_distances.launches > launches  # the reordered search runs K2
+    cd, cl = cpu_ix.search(q, K=10, ef_search=64)
+    assert (gl == cl).all(axis=1).mean() >= 0.99
+    # MatrixMarket import on the card
+    links = card_ix.graph.links[:2000].cpu().numpy()
+    mtx = tmp_path / "g.mtx"
+    with open(mtx, "w") as f:
+        edges = [(i, v) for i, row in enumerate(links) for v in row if v != i]
+        f.write(f"%%MatrixMarket matrix coordinate pattern general\n2000 2000 {len(edges)}\n")
+        f.writelines(f"{a + 1} {b + 1}\n" for a, b in edges)
+    fresh = flatnav_tpu_torch.index.create("l2", 32, 2000, 16)
+    fresh.allocate_nodes(card_ix.graph.vectors[:2000].cpu().numpy(),
+                         card_ix.graph.labels[:2000].cpu().numpy())
+    fresh.build_graph_links(str(mtx))
+    assert torch.equal(fresh.graph.links, card_ix.graph.links)
+    fd, fl = fresh.search(q, K=10, ef_search=64)
+    np.testing.assert_array_equal(fl, gl)
+    np.testing.assert_array_equal(fd, gd)
