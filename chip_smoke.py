@@ -54,6 +54,29 @@ Phases, in order; any failure raises and the script exits nonzero:
      lane_packed equal to unpacked; the scan's stages and its two key
      routes are timed. Peak device memory of the raw and the PQ build is
      printed.
+  7. the benchmark harness (bench/run_benchmark.py) on the main path's data,
+     written as an .npy triplet and as .fbin with a big-ann ground-truth
+     file: `main([...])` for flatnav (ef_search 64 128 192 256, batch 2048),
+     flatnav-fused, flatnav-fusednr, flatnav-exact (from the .fbin) and
+     flatnav-pq-scan (with --memory-log). Every default metric must be
+     present and finite, recall exact = 1.0, fused >= 0.98, graph >= 0.90 at
+     ef=192 and not decreasing in ef, the latency percentiles ordered,
+     distance_computations > 0, and K1 and K2 must have been launched. Then
+     the two CLIs as subprocesses: tools.construct builds and saves the 100k
+     index, tools.query sweeps it with and without --reorder.
+  8. the headline benchmark (bench/headline.py) at its defaults as a
+     subprocess: the last line is parsed and printed whole; its baseline must
+     come from baseline_ref.json (the workload key matches), every engine's
+     recall is held to the limits above, the winner's to 0.95, mfu <= 1, and
+     its own K1 and K2 launch counts must be above zero. The graph point it
+     chose is then re-run on the index it saved at E=64, in full, with
+     m_search=16 and with compact_width=512 (recall and qps of each printed);
+     K2 is held against its plain version at a hop of C=512 compacted ids.
+  9. the routed scan (bench/profile_routed_scan.py at its defaults: 100k x
+     128, 1,024 queries, block 512): the full union must equal
+     brute_force_knn, the end-to-end recalls must lie within 0.02 of those
+     recorded in benchmarks/results_routed_scan.json, and routed_knn's time
+     is printed beside fast_knn's (CUDA events).
 
 The line before the last is one JSON object with each kernel's launches,
 error against its plain version, times and bound; the last line is
@@ -710,6 +733,197 @@ def phase_pq_scan(table):
     return k2_launches
 
 
+def _subprocess(argv, what, timeout=600):
+    """Run `python argv` from the checkout; a nonzero exit fails the smoke."""
+    import subprocess
+
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    r = subprocess.run([sys.executable, *argv], capture_output=True, text=True, timeout=timeout,
+                       cwd=REPO, env=env)
+    check(r.returncode == 0, f"{what} exits 0; its errors end: {r.stderr[-1500:]}")
+    return r.stdout
+
+
+def phase_harness(path):
+    """Phase 7: run_benchmark over files of the main path's data, then the
+    construct and query CLIs. -> (K1 launches, K2 launches) of the harness."""
+    import math
+
+    import numpy as np
+
+    from flatnav_tpu_torch.bench import run_benchmark
+    from flatnav_tpu_torch.ops.fused_scan import scan_buckets
+    from flatnav_tpu_torch.ops.gather_distance import gather_distances
+
+    data, queries, gt, k = (path[x] for x in ("data", "queries", "gt", "k"))
+    with tempfile.TemporaryDirectory(dir=REPO) as tmp:
+        files = {name: os.path.join(tmp, f"{name}.npy") for name in ("train", "queries", "gtruth")}
+        np.save(files["train"], data)
+        np.save(files["queries"], queries)
+        np.save(files["gtruth"], gt.astype(np.int32))
+        fbin = {name: os.path.join(tmp, f"{name}.fbin") for name in ("train", "queries")}
+        for name, arr in (("train", data), ("queries", queries)):
+            with open(fbin[name], "wb") as f:
+                f.write(np.asarray(arr.shape, np.int32).tobytes())
+                f.write(arr.tobytes())
+        gt_bin = os.path.join(tmp, "gtruth.bin")
+        with open(gt_bin, "wb") as f:
+            f.write(np.asarray(gt.shape, np.int32).tobytes())
+            f.write(gt.astype(np.int32).tobytes())
+            f.write(np.zeros(gt.shape, np.float32).tobytes())
+
+        def bench(index_type, ef_search, src=files, gtruth=None, extra=()):
+            return run_benchmark.main([
+                "--dataset", src["train"], "--queries", src["queries"],
+                "--gtruth", gtruth or files["gtruth"], "--metric", "l2",
+                "--index-type", index_type, "--num-node-links", "32",
+                "--ef-construction", "100", "--ef-search", *map(str, ef_search),
+                "--k", str(k), "--batch-size", "2048", "--no-plot",
+                "--metrics-file", os.path.join(tmp, f"metrics_{index_type}.json"), *extra])
+
+        gather_distances.launches = 0
+        scan_buckets.launches = 0
+        rows = bench("flatnav", (64, 128, 192, 256))
+        rows += bench("flatnav-fused", (0,))
+        rows += bench("flatnav-fusednr", (0,))
+        rows += bench("flatnav-exact", (0,), src=fbin, gtruth=gt_bin)
+        mem_log = os.path.join(tmp, "memory.jsonl")
+        rows += bench("flatnav-pq-scan", (0,), extra=("--memory-log", mem_log))
+        k1_launches, k2_launches = scan_buckets.launches, gather_distances.launches
+        with open(mem_log) as f:
+            mem = [json.loads(line) for line in f]
+        check(mem and mem[-1]["device"].get("bytes_in_use", 0) > 0, "the memory log sampled the card")
+
+        print(f"harness: N={data.shape[0]} d={data.shape[1]} M=32 ef_construction=100 K={k} "
+              f"{queries.shape[0]} queries in batches of 2048; K1 launches {k1_launches}, "
+              f"K2 launches {k2_launches}")
+        for row in rows:
+            check(all(name in row and math.isfinite(row[name]) for name in run_benchmark.DEFAULT_METRICS),
+                  f"every default metric of {row['index_type']} is present and finite")
+            check(row["latency_p50"] <= row["latency_p90"] <= row["latency_p95"]
+                  <= row["latency_p99"] <= row["latency_p999"], "latency percentiles ordered")
+            check(row["distance_computations"] > 0 and row["qps"] > 0, "counted work")
+            print(f"  {row['index_type']} ef={row['ef_search']}: recall {row['recall']:.4f}  "
+                  f"qps {row['qps']:.1f}  p50 {row['latency_p50']:.3f} ms  p999 "
+                  f"{row['latency_p999']:.3f} ms  dist comps/query "
+                  f"{row['distance_computations']:.1f}  index {row['index_size'] / 1e6:.1f} MB  "
+                  f"build {row['build_time']:.2f} s")
+        by = {(r["index_type"], r["ef_search"]): r["recall"] for r in rows}
+        graph = [by[("flatnav", ef)] for ef in (64, 128, 192, 256)]
+        check(by[("flatnav-exact", 0)] == 1.0, "harness exact recall == 1.0")
+        check(by[("flatnav-fused", 0)] >= 0.98, "harness fused recall >= 0.98")
+        check(by[("flatnav", 192)] >= 0.90, "harness graph recall >= 0.90 at ef=192")
+        check(graph == sorted(graph), "harness graph recall does not decrease in ef")
+        check(k1_launches > 0 and k2_launches > 0, "the harness launched K1 and K2")
+
+        index_file = os.path.join(tmp, "cli_index.npz")
+        t0 = time.perf_counter()
+        out = _subprocess(["-m", "flatnav_tpu_torch.tools.construct", "0", files["train"], "32",
+                           "100", index_file], "tools.construct")
+        check("saved index" in out, "tools.construct saved the index")
+        built = [ln for ln in out.splitlines() if ln.startswith("build time")]
+        print(f"CLI construct: {built[0]} ({time.perf_counter() - t0:.1f} s with the process)")
+        for extra in ((), ("--reorder",)):
+            out = _subprocess(["-m", "flatnav_tpu_torch.tools.query", index_file, files["queries"],
+                               files["gtruth"], "--ef-search", "100", "200", "--k", str(k), *extra],
+                              "tools.query")
+            lines = [ln for ln in out.splitlines() if ln.startswith("ef_search=")]
+            check(len(lines) == 2, "tools.query printed one line per ef_search")
+            recalls = [float(ln.split(f"recall@{k}=")[1].split()[0]) for ln in lines]
+            check(recalls[1] >= 0.90 and recalls[1] >= recalls[0], "tools.query recall")
+            print(f"CLI query{' --reorder' if extra else ''}: " + " | ".join(lines))
+    return k1_launches, k2_launches
+
+
+def phase_headline():
+    """Phase 8: the headline benchmark as a subprocess, then one graph point
+    of its saved index with the search options. -> (its line, K2 max abs
+    error at the compacted hop)"""
+    import numpy as np
+    import torch
+
+    from flatnav_tpu_torch.bench import headline
+    from flatnav_tpu_torch.index import search as search_mod
+    from flatnav_tpu_torch.index.serialize import load_index
+    from flatnav_tpu_torch.ops import brute_force_knn
+    from flatnav_tpu_torch.ops.gather_distance import gather_distances
+
+    with open(os.path.join(REPO, "baseline_ref.json")) as f:
+        ref = json.load(f)
+    with tempfile.TemporaryDirectory(dir=REPO) as tmp:
+        saved = ["--index", os.path.join(tmp, "headline_index.npz"),
+                 "--queries-file", os.path.join(tmp, "headline_queries.npy")]
+        t0 = time.perf_counter()
+        out = _subprocess(["-m", "flatnav_tpu_torch.bench.headline", *saved], "bench.headline",
+                          timeout=900)
+        line = json.loads(out.strip().splitlines()[-1])
+        print(f"headline ({time.perf_counter() - t0:.1f} s with the process): {json.dumps(line)}")
+        check("engine_faults" not in line, "no engine_faults key")
+        check(line["workload_key"] == ref["workload_key"] and line["baseline_qps"] == ref["qps"],
+              "the headline's baseline is baseline_ref.json's (the workload key matches)")
+        check(line["vs_baseline"] == round(line["value"] / ref["qps"], 2), "vs_baseline")
+        check(line["exact_recall"] == 1.0, "headline exact recall == 1.0")
+        check(line["fused_recall"] >= 0.98 and line["fusednr_recall"] >= 0.98
+              and line["fast_recall"] >= 0.98, "headline scan recalls >= 0.98")
+        check(line["graph_recall"] >= 0.95, "headline graph point meets the target")
+        check(line["recall"] >= 0.95, "the winner's recall >= 0.95")
+        check(line["mfu"] is None or line["mfu"] <= 1, "mfu <= 1")
+        check(all(v is None or v <= 1 for v in line["engine_mfu"].values()), "engine mfu <= 1")
+        check(line["kernel_launches"]["scan_buckets"] > 0
+              and line["kernel_launches"]["gather_distances"] > 0, "the headline launched K1 and K2")
+
+        # the graph point it chose, at E=64 on the index it saved
+        g, metric, _ = load_index(saved[1])
+        q = torch.from_numpy(np.load(saved[3])).cuda()
+        _, gt = brute_force_knn(g.vectors[: g.num_nodes], q, 10, metric)
+        gt = gt.cpu().numpy()
+        ef, m = line["ef_search"], g.links.shape[1]
+        rec = CallRecorder(gather_distances, lambda v, ids, qq, mt: ids.shape[1] == 512, nth=3)
+        search_mod.gather_distances = rec
+        try:
+            for name, opts in (("full", {}), ("m_search=16", {"ms": 16}),
+                               ("compact_width=512", {"cw": 512})):
+                def run():
+                    return headline._run_graph(g, metric, q, 10, 4096, ef, 64, **opts)
+
+                rec.reset()
+                gather_distances.launches = 0
+                labels, _ = run()
+                launches = gather_distances.launches
+                qps = headline._best_qps(run, q.shape[0], 3)
+                print(f"  graph E=64 ef={ef} M={m} {name}: recall@10 {recall(labels, gt):.4f}  "
+                      f"qps {qps:.1f}  K2 launches {launches}")
+                check(launches > 0, f"the {name} search launched K2")
+        finally:
+            search_mod.gather_distances = gather_distances
+    check(rec.args is not None and tuple(rec.args[1].shape) == (4096, 512),
+          "a compacted hop of C=512 was recorded")
+    k2_err = k2_against_plain(*rec.args, "compacted hop, C=512")
+    print("  K2 at a compacted hop B x C = (4096, 512): bit-equal to the plain version")
+    return line, k2_err
+
+
+def phase_routed_scan():
+    """Phase 9: the routed scan's bounds, recall and time at the tool's
+    defaults."""
+    from flatnav_tpu_torch.bench import profile_routed_scan
+
+    with open(os.path.join(REPO, "benchmarks", "results_routed_scan.json")) as f:
+        recorded = json.load(f)["clustered_default"]["end_to_end"]
+    t0 = time.perf_counter()
+    out = profile_routed_scan.profile()
+    print(f"routed scan ({time.perf_counter() - t0:.1f} s): {json.dumps(out)}")
+    check(out["full_union_recall"] == 1.0, "the full union equals brute_force_knn")
+    check(len(out["end_to_end"]) == len(recorded), "every recorded setting ran")
+    for got, want in zip(out["end_to_end"], recorded):
+        check(all(got[x] == want[x] for x in ("probes", "union", "group")), "the same settings")
+        check(abs(got["recall"] - want["recall"]) <= 0.02,
+              f"routed recall {got['recall']} within 0.02 of the recorded {want['recall']}")
+        print(f"  P={got['probes']} U={got['union']} G={got['group']}: recall {got['recall']:.4f} "
+              f"(recorded {want['recall']:.4f}), routed_knn {got['routed_knn_ms']:.3f} ms against "
+              f"fast_knn {out['fast_knn_ms']:.3f} ms (recall {out['fast_knn_recall']:.4f})")
+
+
 def main() -> int:
     quick = "--quick" in sys.argv[1:]
     import torch
@@ -743,7 +957,12 @@ def main() -> int:
         k2["build_wave"] = k2_timing(wave, "build wave")
         k2["launches_reordered_search"] = phase_reorder(path)
         phase_pq_graph(path)
+        k1["launches_harness"], k2["launches_harness"] = phase_harness(path)
         del path
+        head, k2_compact = phase_headline()
+        k1["launches_headline"] = head["kernel_launches"]["scan_buckets"]
+        k2["launches_headline"] = head["kernel_launches"]["gather_distances"]
+        phase_routed_scan()
         err_1m, k1_times, k1p_times, table = phase_scan_1m()
         k2["launches_pq_raw_rerank"] = phase_pq_scan(table)
         del table
@@ -753,7 +972,7 @@ def main() -> int:
         k1["launches"] = launches["scan_buckets"]
         k2["launches"] = launches["gather_distances"]
         k1_err = max(k1_err, k1_main, err_1m)
-        k2_err = max(k2_err, k2_main)
+        k2_err = max(k2_err, k2_main, k2_compact)
     k1["max_abs_err"], k2["max_abs_err"] = k1_err, k2_err
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

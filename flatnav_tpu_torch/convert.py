@@ -3,7 +3,8 @@
 Both packages store a graph as the same three arrays (vectors, links,
 labels) with the same padding rules, so a JAX-built graph runs unchanged
 in the port: this is the port's counterpart of loading a model's weights.
-A product quantizer is its codebook array, and a PQ index its .npz file.
+A product quantizer is its codebook array, a PQ index its .npz file, and a
+routed scan its cell-ordered table with its slot ids and block centroids.
 Everything crosses as numpy arrays; nothing here imports JAX.
 """
 
@@ -16,6 +17,7 @@ from flatnav_tpu_torch.data_type import from_numpy, resolve_device
 from flatnav_tpu_torch.index.api import Index, load_index
 from flatnav_tpu_torch.index.graph import GraphArrays, wave_pad
 from flatnav_tpu_torch.ops.distances import MetricType
+from flatnav_tpu_torch.ops.routed_scan import RoutedScan
 from flatnav_tpu_torch.quantization.pq import PQCodebook, ProductQuantizer
 from flatnav_tpu_torch.quantization.pq_index import PQIndex
 
@@ -81,9 +83,39 @@ def pq_index_from_jax_npz(path: str, device=None) -> PQIndex:
     return PQIndex.load(path, device=device)
 
 
+def routed_scan_from_jax_arrays(
+    vectors: np.ndarray,
+    ids: np.ndarray,
+    block_centroids: np.ndarray,
+    n: int,
+    block: int,
+    metric,
+    device=None,
+) -> RoutedScan:
+    """A RoutedScan from the fields of a JAX `RoutedScan` (as numpy arrays),
+    so that both packages search one layout. `metric` is either package's
+    MetricType, or its value "l2" / "ip"."""
+    if vectors.shape[0] != ids.shape[0] or vectors.shape[0] != block_centroids.shape[0] * block:
+        raise ValueError(
+            f"arrays are not a layout of {block}-row blocks: vectors "
+            f"{vectors.shape}, ids {ids.shape}, block_centroids {block_centroids.shape}"
+        )
+    dev = resolve_device(device)
+    bf16 = vectors.dtype.name == "bfloat16"
+    return RoutedScan(
+        vectors=from_numpy(vectors, torch.bfloat16 if bf16 else None).to(dev),
+        ids=torch.from_numpy(np.array(ids, np.int32)).to(dev),
+        block_centroids=torch.from_numpy(np.array(block_centroids, np.float32)).to(dev),
+        n=int(n),
+        block=int(block),
+        metric=MetricType(getattr(metric, "value", metric)),
+    )
+
+
 __all__ = [
     "graph_from_jax_arrays",
     "index_from_jax_npz",
     "pq_from_jax_arrays",
     "pq_index_from_jax_npz",
+    "routed_scan_from_jax_arrays",
 ]

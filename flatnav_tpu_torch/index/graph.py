@@ -22,7 +22,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from flatnav_tpu_torch.data_type import from_numpy
+from flatnav_tpu_torch.data_type import from_numpy, resolve_device
 
 #: construction waves are padded to power-of-two buckets up to this size
 MAX_WAVE = 8192
@@ -68,10 +68,12 @@ def make_empty_graph(
     dim: int,
     max_edges: int,
     dtype: torch.dtype = torch.float32,
-    device="cpu",
+    device=None,
 ) -> GraphArrays:
     """Allocate the full-capacity arrays up front (Index.h:159-179), every
-    link row already in the self-loop "all edges unused" state."""
+    link row already in the self-loop "all edges unused" state. On the card
+    unless `device` says otherwise (`data_type.resolve_device`)."""
+    device = resolve_device(device)
     rows = capacity + wave_pad(capacity)
     return GraphArrays(
         vectors=torch.zeros((rows, dim), dtype=dtype, device=device),
@@ -95,11 +97,12 @@ def graph_from_numpy(
     num_nodes: int | None = None,
     capacity: int | None = None,
     dtype: torch.dtype | None = None,
-    device="cpu",
+    device=None,
 ) -> GraphArrays:
     """Build GraphArrays from the committed rows held on the host (a
     deserialized index, say). `dtype=torch.bfloat16` reads a uint16 array
-    as bfloat16 bits."""
+    as bfloat16 bits. On the card unless `device` says otherwise."""
+    device = resolve_device(device)
     n, d = vectors.shape
     cap = capacity or n
     if n > cap:

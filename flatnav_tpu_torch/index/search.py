@@ -22,9 +22,12 @@ The port keeps the JAX package's default behaviour and only that:
     `num_initializations` strided rows with one matmul (ENTRY_IMPL
     "matmul"). Its rounding differs from the hop's direct form, so the
     entry point can differ from the JAX package's on a near tie.
-  * the JAX package's search options that its Index never sets
-    (`compact_width`, `m_search`, `max_hops`, `links_block`) are not
-    ported: every hop scores all E*M links and the hop cap is the default.
+
+The search options are the JAX package's: `max_hops` (the hop cap),
+`m_search` (only the first links of every node), `compact_width` (score only
+the first fresh candidates of a hop) and, on `beam_search_core`,
+`links_block` (who resolves neighbor lists: the table gather by default, a
+sharded table's gather otherwise).
 
 The hop's scorer is `gather_distances` (kernel K2) for float tables; integer
 tables keep the exact int32 path.
@@ -84,17 +87,26 @@ def _hop_cap(ef: int, e_f: int) -> int:
     return max((2 * ef + 128) // e_f, 16)
 
 
-def _search_temp_bytes(b: int, ef: int, e_f: int, m: int, d: int) -> int:
+def _search_temp_bytes(
+    b: int, ef: int, e_f: int, m: int, d: int, compact_width: int = 0, max_hops: int = 0
+) -> int:
     """Estimated bytes of per-hop intermediates for a B-query dispatch that
     expands `e_f` entries of `m` links a hop (the JAX package's accounting,
-    kept as a conservative bound): the [B, E*M, d] scoring block twice, the
-    merge, the expanded-id history and the sorts."""
+    kept as a conservative bound): the scoring block twice ([B, C, d], with
+    C = `compact_width` where that is set and below E*M), the merge, the
+    expanded-id history and the sorts. A `max_hops` above the default cap
+    widens the history, and the hop's membership test against it is charged
+    for the excess."""
     em = e_f * m
-    score = 2 * b * em * d * 4
-    merge = b * ef * min(em, ef) * 4
-    hist = b * _hop_cap(ef, e_f) * e_f * 4
-    sorts = 3 * b * (ef + em) * 4
-    return score + merge + hist + sorts
+    c = compact_width if 0 < compact_width < em else em
+    default_hist = _hop_cap(ef, e_f) * e_f
+    hist_width = max_hops * e_f if max_hops else default_hist
+    score = 2 * b * c * d * 4
+    merge = b * ef * min(c, ef) * 4
+    hist = b * hist_width * 4
+    member_excess = b * c * max(hist_width - default_hist, 0) * 4
+    sorts = 3 * b * (ef + c) * 4
+    return score + merge + hist + member_excess + sorts
 
 
 def safe_query_batch(
@@ -104,7 +116,9 @@ def safe_query_batch(
     m: int,
     d: int,
     expand_factor: int = 1,
+    compact_width: int = 0,
     table_bytes: int = 0,
+    max_hops: int = 0,
     device="cpu",
 ) -> int:
     """Largest per-dispatch query sub-batch whose estimated working set fits
@@ -118,7 +132,7 @@ def safe_query_batch(
     em = e_f * m
 
     def need(sub):
-        return _search_temp_bytes(sub, ef, e_f, m, d)
+        return _search_temp_bytes(sub, ef, e_f, m, d, compact_width, max_hops)
 
     sub = b
     while sub > 1 and need(sub) > avail:
@@ -129,7 +143,8 @@ def safe_query_batch(
             f"ef={ef}, expand_factor={expand_factor} (E*M={em}), d={d} "
             f"needs ~{need(1)/1e9:.2f} GB of hop working set per query "
             f"against ~{avail/1e9:.2f} GB available beside the "
-            f"{table_bytes/1e9:.2f} GB table. Reduce ef or expand_factor."
+            f"{table_bytes/1e9:.2f} GB table. Reduce ef or expand_factor, "
+            f"or set compact_width."
         )
     return sub
 
@@ -170,18 +185,38 @@ def beam_search_core(
     *,
     ef: int,
     num_initializations: int = 100,
+    max_hops: int = 0,
     expand_factor: int = 1,
+    compact_width: int = 0,
+    links_block=None,
 ) -> BeamResults:
     """Distance-backend-agnostic beam search loop.
 
     `score_block(ids [B, C] int32) -> [B, C] float32` scores node ids[b, c]
     against query b; `entry_block(cand [NI]) -> [B, NI]` scores the entry
-    candidates that every query shares."""
+    candidates that every query shares.
+
+    `links_block(ids [B, E] int32) -> [B, E*M] int32` resolves neighbor
+    lists; None is a gather from `links`. A row-sharded table supplies its
+    own, and the hop loop, the visited state and the merge stay shared.
+
+    `max_hops` (0 = the default cap) bounds the hops and sizes the
+    expanded-id history.
+
+    `compact_width` (CC, 0 = off): after the fresh mask, keep the first CC
+    candidates of the hop with the fresh ones moved to the front (in their
+    order), and score only those. Fresh candidates past CC are dropped for
+    this hop; duplicates and visited ids go first. A no-op at CC >= E*M.
+    Results repeat but are not those of the uncompacted hop."""
     m = links.shape[1]
     b = batch
     dev = links.device
     e_f = max(min(expand_factor, ef), 1)
-    hop_cap = _hop_cap(ef, e_f)
+    em = e_f * m
+    hop_cap = max_hops if max_hops else _hop_cap(ef, e_f)
+    if links_block is None:
+        def links_block(ids):
+            return links[ids.reshape(-1).long()].reshape(b, em)
 
     ni = num_initializations
     step = max(num_nodes // ni, 1)
@@ -220,13 +255,20 @@ def beam_search_core(
         hit = ((pos[None, :, None] == sel[:, None, :]) & sel_valid[:, None, :]).any(2)
         beam_e = beam_e | hit
 
-        nbrs = links[cur_ids.reshape(-1).long()].reshape(b, e_f * m)
+        nbrs = links_block(cur_ids)  # [B, E*M]
         valid_src = sel_valid.repeat_interleave(m, dim=1)
         visited[:, it * e_f : (it + 1) * e_f] = torch.where(sel_valid, cur_ids, -1)
         beam_tab = torch.where(torch.isfinite(beam_d), beam_i, _INT_SENTINEL)
         in_beam = _sorted_member(beam_tab.sort(dim=1).values, nbrs)
         in_hist = _sorted_member(visited.sort(dim=1).values, nbrs)
         fresh = ~(in_beam | in_hist) & valid_src & _first_occurrence(nbrs)
+        if 0 < compact_width < em:
+            # fresh-first: a stable sort on "not fresh" keeps both groups in
+            # their order, so the kernel below scores CC rows, not E*M
+            order = torch.argsort((~fresh).to(torch.int8), dim=1, stable=True)
+            order = order[:, :compact_width]
+            nbrs = nbrs.gather(1, order)
+            fresh = fresh.gather(1, order)
         nd = torch.where(fresh, score_block(nbrs), float("inf"))
         dcomp = dcomp + fresh.sum()
         hops = hops + sel_valid.sum()
@@ -248,10 +290,20 @@ def beam_search(
     ef: int,
     metric: MetricType = MetricType.L2,
     num_initializations: int = 100,
+    max_hops: int = 0,
     expand_factor: int = 1,
+    compact_width: int = 0,
+    m_search: int = 0,
 ) -> BeamResults:
     """Batched beam search over raw stored vectors; returns the ef-wide
-    beam per query."""
+    beam per query.
+
+    `m_search` (0 = all): follow only the first m_search links of a node. A
+    node's committed links are sorted by distance (the prune's output
+    order), so the prefix is a lower-degree view of the same graph. The
+    slice is a view; the hop gathers its rows from it."""
+    if 0 < m_search < links.shape[1]:
+        links = links[:, :m_search]
     # integer queries against an integer table keep the exact int32 path
     if not (_is_int(queries) and _is_int(vectors)):
         queries = queries.to(torch.float32)
@@ -275,7 +327,9 @@ def beam_search(
         entry_block,
         ef=ef,
         num_initializations=num_initializations,
+        max_hops=max_hops,
         expand_factor=expand_factor,
+        compact_width=compact_width,
     )
 
 
@@ -290,25 +344,31 @@ def batched_search(
     ef: int,
     metric: MetricType = MetricType.L2,
     num_initializations: int = 100,
+    max_hops: int = 0,
     expand_factor: int = 1,
+    compact_width: int = 0,
+    m_search: int = 0,
 ) -> SearchResults:
     """Top-K search: Index::search (Index.h:387-409) over a query batch,
     split into sub-batches where the memory guard asks for it."""
     b = queries.shape[0]
     ef = max(ef, k)
+    m_eff = m_search if 0 < m_search < links.shape[1] else links.shape[1]
     table_bytes = (
         vectors.numel() * vectors.element_size() + links.numel() * 4 + labels.numel() * 4
     )
     sub = safe_query_batch(
-        b, ef, m=links.shape[1], d=vectors.shape[1], expand_factor=expand_factor,
-        table_bytes=table_bytes, device=vectors.device,
+        b, ef, m=m_eff, d=vectors.shape[1], expand_factor=expand_factor,
+        compact_width=compact_width, table_bytes=table_bytes, max_hops=max_hops,
+        device=vectors.device,
     )
     dists, labs, dcomp, hops = [], [], 0, 0
     for lo in range(0, b, sub):
         beam = beam_search(
             vectors, links, num_nodes, queries[lo : lo + sub], ef=ef,
             metric=metric, num_initializations=num_initializations,
-            expand_factor=expand_factor,
+            max_hops=max_hops, expand_factor=expand_factor,
+            compact_width=compact_width, m_search=m_search,
         )
         top_d, top_i = beam.dists[:, :k], beam.ids[:, :k]
         dists.append(top_d)

@@ -49,8 +49,9 @@ def save_index(
         )
 
 
-def load_index(path: str, device="cpu"):
-    """Returns (GraphArrays, metric, metadata dict)."""
+def load_index(path: str, device=None):
+    """Returns (GraphArrays, metric, metadata dict); the arrays go to the
+    card unless `device` says otherwise (`graph_from_numpy`)."""
     with np.load(path, allow_pickle=False) as z:
         meta = json.loads(bytes(z["metadata"]).decode("utf-8"))
         if meta.get("format_version", 0) > _FORMAT_VERSION:

@@ -8,3 +8,8 @@ from flatnav_tpu_torch.ops.distances import (  # noqa: F401
 )
 from flatnav_tpu_torch.ops.fused_scan import fused_knn  # noqa: F401
 from flatnav_tpu_torch.ops.gather_distance import gather_distances  # noqa: F401
+from flatnav_tpu_torch.ops.routed_scan import (  # noqa: F401
+    RoutedScan,
+    build_routed_scan,
+    routed_knn,
+)

@@ -336,6 +336,7 @@ def pq_beam_search(
     ef: int,
     metric: MetricType = MetricType.L2,
     num_initializations: int = 100,
+    max_hops: int = 0,
     expand_factor: int = 1,
 ) -> BeamResults:
     """Beam search over PQ codes with ADC scoring: the PQ analog of
@@ -359,6 +360,7 @@ def pq_beam_search(
         entry_block,
         ef=ef,
         num_initializations=num_initializations,
+        max_hops=max_hops,
         expand_factor=expand_factor,
     )
 

@@ -94,7 +94,7 @@ def test_port_build_bit_deterministic():
     data = rng.standard_normal((1500, 16), dtype=np.float32)
 
     def build():
-        g = make_empty_graph(1500, 16, 8)
+        g = make_empty_graph(1500, 16, 8, device="cpu")
         return add_batch(g, data, np.arange(1500), ef_construction=48,
                          metric=MetricType.L2, max_wave=512)
 

@@ -322,3 +322,145 @@ def test_reorder_and_import_on_card_match_cpu(cuda, tmp_path):
     fd, fl = fresh.search(q, K=10, ef_search=64)
     np.testing.assert_array_equal(fl, gl)
     np.testing.assert_array_equal(fd, gd)
+
+
+# ---------------------------------------------------------------------------
+# the search options, the harness, the headline entry and the routed scan
+# ---------------------------------------------------------------------------
+
+
+def _small_index(device, n=3000, d=32, m=16, nq=128):
+    rng = np.random.default_rng(9)
+    data = rng.standard_normal((n, d), dtype=np.float32)
+    q = rng.standard_normal((nq, d), dtype=np.float32)
+    ix = flatnav_tpu_torch.index.create("l2", d, n, m, device=device)
+    ix.add(data, ef_construction=64)
+    return ix, data, q
+
+
+@pytest.mark.parametrize("cw", [24, 32, 100])
+def test_gather_distances_at_compact_width(cuda, cw, monkeypatch):
+    # K2 is launched at C = compact_width and is bit-equal to its plain
+    # version there; the search agrees with the same search on the CPU
+    from flatnav_tpu_torch.index import search as search_mod
+    from flatnav_tpu_torch.index.search import batched_search
+
+    ix, _, q = _small_index("cpu")
+    g = ix.graph
+    calls = []
+
+    def spy(vectors, ids, queries, metric):
+        got = gather_distances(vectors, ids, queries, metric)
+        calls.append(ids.shape[1])
+        assert torch.equal(got, gather_distances_plain(vectors, ids, queries, metric))
+        return got
+
+    monkeypatch.setattr(search_mod, "gather_distances", spy)
+    kw = dict(k=10, ef=32, expand_factor=8, compact_width=cw, m_search=12)
+    before = gather_distances.launches
+    card = batched_search(g.vectors.cuda(), g.links.cuda(), g.labels.cuda(), g.num_nodes,
+                          torch.from_numpy(q).cuda(), **kw)
+    assert set(calls) == {min(cw, 8 * 12)} and gather_distances.launches == before + len(calls)
+    monkeypatch.undo()
+    cpu = batched_search(g.vectors, g.links, g.labels, g.num_nodes, torch.from_numpy(q), **kw)
+    same = (card.labels.cpu() == cpu.labels).all(dim=1)
+    assert float(same.float().mean()) >= 0.99
+    assert torch.allclose(card.dists.cpu()[same], cpu.dists[same], rtol=1e-5)
+
+
+def test_m_search_view_gathers_without_a_table_copy(cuda):
+    links = torch.arange(2_000_000 * 32, dtype=torch.int32, device=cuda).view(-1, 32)
+    rows = torch.randint(0, links.shape[0], (4096,), device=cuda)
+    view = links[:, :16]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = view[rows]
+    torch.cuda.synchronize()
+    # the gather allocates its [4096, 16] result, not a copy of the 128 MB view
+    assert torch.cuda.max_memory_allocated() - base < 4 * 1024 * 1024
+    assert torch.equal(got, links[rows][:, :16])
+
+
+def test_graph_entry_points_land_on_the_card(cuda, tmp_path):
+    from flatnav_tpu_torch.index import graph as graph_mod
+    from flatnav_tpu_torch.index import serialize
+
+    g = graph_mod.make_empty_graph(10, 8, 4)
+    assert g.vectors.is_cuda and g.links.is_cuda
+    g = graph_mod.graph_from_numpy(np.ones((5, 8), np.float32),
+                                   np.zeros((5, 4), np.int32))
+    assert g.vectors.is_cuda
+    path = str(tmp_path / "g.npz")
+    serialize.save_index(path, g, MetricType.L2)
+    assert serialize.load_index(path)[0].vectors.is_cuda
+
+
+@pytest.mark.parametrize("index_type,min_recall", [
+    ("flatnav", 0.9), ("flatnav-fused", 0.98), ("flatnav-fusednr", 0.95),
+    ("flatnav-exact", 1.0), ("flatnav-fast", 0.98), ("flatnav-pq-scan", 0.9),
+])
+def test_harness_on_card(cuda, tmp_path, index_type, min_recall):
+    from flatnav_tpu_torch.bench import run_benchmark
+
+    rng = np.random.default_rng(1)
+    train = rng.standard_normal((3000, 32)).astype(np.float32)
+    queries = rng.standard_normal((100, 32)).astype(np.float32)
+    _, gt = brute_force_knn(torch.from_numpy(train), torch.from_numpy(queries), 10)
+    for name, arr in (("train", train), ("queries", queries), ("gt", gt.numpy())):
+        np.save(tmp_path / f"{name}.npy", arr)
+    k1, k2 = scan_buckets.launches, gather_distances.launches
+    rows = run_benchmark.main([
+        "--dataset", str(tmp_path / "train.npy"), "--queries", str(tmp_path / "queries.npy"),
+        "--gtruth", str(tmp_path / "gt.npy"), "--index-type", index_type,
+        "--num-node-links", "16", "--ef-construction", "64", "--ef-search", "96",
+        "--k", "10", "--batch-size", "64", "--no-plot",
+        "--metrics-file", str(tmp_path / "metrics.json")])
+    assert len(rows) == 1 and rows[0]["recall"] >= min_recall and rows[0]["qps"] > 0
+    if index_type.startswith("flatnav-fused"):
+        assert scan_buckets.launches > k1
+    if index_type in ("flatnav", "flatnav-pq-scan"):
+        assert gather_distances.launches > k2
+
+
+def test_headline_on_card(cuda, tmp_path, capsys):
+    import json
+
+    from flatnav_tpu_torch.bench import headline
+
+    files = ["--index", str(tmp_path / "ix.npz"), "--queries-file", str(tmp_path / "q.npy")]
+    headline.main(["--n", "5000", "--dim", "64", "--num-queries", "512", "--batch", "512",
+                   "--m", "16", *files])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["exact_recall"] == 1.0 and out["recall"] >= 0.95 and out["value"] > 0
+    assert "NVIDIA" in out["device"] and out["vs_baseline"] is None
+    assert out["kernel_launches"]["scan_buckets"] > 0
+    assert out["kernel_launches"]["gather_distances"] > 0
+    headline.main(["--time-only", "--engine", "graph", "--ef-search", "64", "--m-search", "8",
+                   "--compact-width", "128", "--batch", "512", *files])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["qps"] > 0
+
+
+def test_routed_scan_on_card_matches_cpu(cuda):
+    from flatnav_tpu_torch.bench.synth import clustered
+    from flatnav_tpu_torch.ops import build_routed_scan, routed_knn
+    from flatnav_tpu_torch.ops.routed_scan import RoutedScan
+
+    data, queries = clustered(4000, 32, 100, center_scale=4.0, query_noise=0.5)
+    rs = build_routed_scan(data, block=256)  # the card is the default
+    assert rs.vectors.is_cuda and rs.ids.is_cuda
+    q = torch.from_numpy(queries).cuda()
+    _, gt = brute_force_knn(torch.from_numpy(data).cuda(), q, 5)
+    nb = rs.block_centroids.shape[0]
+    _, full = routed_knn(rs, q, 5, union_blocks=nb, group_size=32)
+    assert torch.equal(full.sort(dim=1).values, gt.sort(dim=1).values)
+    # the same layout searched on both devices
+    on_cpu = RoutedScan(rs.vectors.cpu(), rs.ids.cpu(), rs.block_centroids.cpu(),
+                        rs.n, rs.block, rs.metric)
+    kw = dict(probes=4, union_blocks=nb // 3, group_size=32)
+    gd, gi = routed_knn(rs, q, 5, **kw)
+    cd, ci = routed_knn(on_cpu, q.cpu(), 5, **kw)
+    assert float((gi.cpu() == ci).float().mean()) >= 0.99
+    assert torch.allclose(gd.cpu(), cd, rtol=1e-4, atol=1e-4)
+    again = routed_knn(rs, q, 5, **kw)
+    assert torch.equal(again[0], gd) and torch.equal(again[1], gi)
