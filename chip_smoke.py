@@ -77,6 +77,19 @@ Phases, in order; any failure raises and the script exits nonzero:
      brute_force_knn, the end-to-end recalls must lie within 0.02 of those
      recorded in benchmarks/results_routed_scan.json, and routed_knn's time
      is printed beside fast_knn's (CUDA events).
+  10. parallel/ on the main path's (reordered) graph, data and queries, run
+     after phase 7: a (1, 1) NCCL mesh runs every sharded function
+     (sharded_search E=16, data_parallel_search, sharded_exact_search exact
+     and fused, sharded_pq_scan with phase 6's quantizer and raw rerank, the
+     mesh build in both layouts over the first 10,000 rows); four gloo ranks
+     on the one card run (1, 4) model-sharded search, exact, fused, PQ and
+     build, and (2, 2) data-parallel search and replicated build. Each
+     result must equal the single-device port's on the same inputs (the
+     two-phase scans: the same engine shard by shard), and each rank must
+     have launched its kernels (per-rank counts printed and in the kernels
+     line). K1 on a shard's rows and K2 on a shard's table are held against
+     their plain versions; then the dry run (parallel.dryrun_multichip) at
+     4 gloo ranks.
 
 The line before the last is one JSON object with each kernel's launches,
 error against its plain version, times and bound; the last line is
@@ -924,6 +937,154 @@ def phase_routed_scan():
               f"fast_knn {out['fast_knn_ms']:.3f} ms (recall {out['fast_knn_recall']:.4f})")
 
 
+#: rows of the main path's data the phase-10 builds take: every wave of the
+#: model-sharded build sends its candidate rows and back-edge targets through
+#: gloo, which several ranks on one card need (PERF.md)
+SHARDED_BUILD_ROWS = 10_000
+
+
+def phase_sharded(path):
+    """Phase 10: parallel/ on the main path's graph, data and queries. A (1, 1)
+    NCCL mesh runs every sharded function; four gloo ranks on the one card run
+    the model-sharded search, build, exact, fused and PQ scans on (1, 4) and
+    the data-parallel search and replicated build on (2, 2); then the dry run
+    at 4 ranks. Every result must equal the single-device port's on the same
+    inputs (the two-phase scans: the same engine shard by shard). ->
+    {run: {case: [per-rank launches]}} for K1 and for K2."""
+    import numpy as np
+    import torch
+
+    from flatnav_tpu_torch.data_type import to_numpy
+    from flatnav_tpu_torch.index.build import add_batch
+    from flatnav_tpu_torch.index.graph import make_empty_graph
+    from flatnav_tpu_torch.index.search import batched_search
+    from flatnav_tpu_torch.ops import MetricType, brute_force_knn, fused_knn
+    from flatnav_tpu_torch.ops import fused_scan as fused_mod
+    from flatnav_tpu_torch.ops.fused_scan import scan_buckets, scan_variant
+    from flatnav_tpu_torch.ops.gather_distance import gather_distances
+    from flatnav_tpu_torch.parallel import dryrun_multichip, run_ranks
+    from flatnav_tpu_torch.parallel.dryrun import run_cases
+    from flatnav_tpu_torch.parallel.sharded_exact import shards_on_one_device
+    from flatnav_tpu_torch.quantization import ProductQuantizer
+    from flatnav_tpu_torch.quantization.pq import pq_scan_knn
+
+    g, data, queries, k, ef = (path[x] for x in ("index", "data", "queries", "k", "ef"))
+    g = g.graph
+    n, d, m = g.num_nodes, g.dim, g.max_edges
+    e_f, efc, nb = 16, 100, SHARDED_BUILD_ROWS
+    q = torch.from_numpy(queries).cuda()
+    graph = {"vectors": to_numpy(g.vectors), "links": to_numpy(g.links), "labels": to_numpy(g.labels),
+             "num_nodes": n, "capacity": g.capacity}
+    pq = ProductQuantizer(d, 16, 8).train(data, n_iters=25)
+    codes = pq.encode(g.vectors[:n])
+    tables = pq.adc_tables(q)
+    table_n = graph["vectors"][:n]
+    args = {
+        "search": {"op": "search", "args": {"graph": graph, "queries": queries, "k": k, "ef": ef,
+                                            "expand_factor": e_f}},
+        "dp_search": {"op": "dp_search", "args": {"graph": graph, "queries": queries, "k": k, "ef": ef}},
+        "exact": {"op": "exact", "args": {"vectors": table_n, "num_nodes": n, "queries": queries, "k": k}},
+        "fused": {"op": "exact", "args": {"vectors": table_n, "num_nodes": n, "queries": queries, "k": k,
+                                          "rerank": 32, "fused": True}},
+        "pq": {"op": "pq", "args": {"codes": codes.cpu().numpy(), "tables": tables.cpu().numpy(),
+                                    "num_nodes": n, "k": k, "rerank": 64, "vectors": table_n,
+                                    "queries": queries}},
+    }
+    for spec in ("model", "replicated"):
+        args[f"build_{spec}"] = {"op": "build", "args": {
+            "data": data[:nb], "capacity": nb, "max_edges": m, "ef_construction": efc,
+            "metric": MetricType.L2, "table_spec": spec}}
+    runs = {"nccl 1x1": ("nccl", (1, 1), list(args)),
+            "gloo 1x4": ("gloo", (1, 4), ["search", "exact", "fused", "pq", "build_model"]),
+            "gloo 2x2": ("gloo", (2, 2), ["dp_search", "build_replicated"])}
+
+    # the single-device port on the same inputs; K1 on the first shard of
+    # the (1, 4) fused scan is recorded on the way
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    table = torch.from_numpy(table_n).cuda()
+    rec = CallRecorder(scan_buckets, lambda qb, rows, *rest: rows.shape[0] < n)
+    fused_mod.scan_buckets = rec
+    try:
+        want = {
+            "search": batched_search(g.vectors, g.links, g.labels, n, q, k=k, ef=ef, expand_factor=e_f),
+            "dp_search": batched_search(g.vectors, g.links, g.labels, n, q, k=k, ef=ef),
+            "exact": brute_force_knn(table, q, k),
+            "fused 1": fused_knn(table, q, k, rerank=32),
+            "fused 4": shards_on_one_device(
+                lambda r, nv: fused_knn(r, q, k, rerank=32, n_valid=nv), table, n, 4, k),
+        }
+    finally:
+        fused_mod.scan_buckets = scan_buckets
+    for nm in (1, 4):
+        want[f"pq {nm}"] = shards_on_one_device(
+            lambda rows, nv: pq_scan_knn(codes[rows[:, 0]], tables, k, rerank=64, n_valid=nv,
+                                         vectors=table[rows[:, 0]], queries=q),
+            torch.arange(n, device="cuda")[:, None], n, nm, k)
+    built = add_batch(make_empty_graph(nb, d, m), data[:nb], np.arange(nb), ef_construction=efc,
+                      metric=MetricType.L2)
+    want_links = to_numpy(built.links)[: built.vectors.shape[0]]
+    torch.cuda.synchronize()
+    print(f"sharded: single-device references in {time.perf_counter() - t0:.1f} s; builds of "
+          f"{nb} rows of the main data (M={m}, ef_construction={efc}), searches of {len(queries)} "
+          f"queries at ef={ef} (model-sharded E={e_f}, data-parallel E=1)")
+
+    launches = {"scan_buckets": {}, "gather_distances": {}}
+    for run, (backend, shape, names) in runs.items():
+        t0 = time.perf_counter()
+        outs = run_ranks(run_cases, shape[0] * shape[1], backend=backend, device="cuda", timeout=900,
+                         args=([args[x] for x in names], *shape, "cuda"))
+        print(f"  {run} ({time.perf_counter() - t0:.1f} s with the ranks' start):")
+        for name, out in zip(names, outs):
+            nm = shape[1]
+            if name in ("search", "dp_search"):
+                ref = want[name]
+                check(np.array_equal(out["labels"], ref.labels.cpu().numpy()), f"{run} {name} labels")
+                check(np.allclose(out["dists"], ref.dists.cpu().numpy(), rtol=0, atol=1e-5),
+                      f"{run} {name} distances")
+                check((out["dist_computations"], out["hops"]) == (ref.dist_computations, ref.hops),
+                      f"{run} {name} counters")
+            elif name.startswith("build"):
+                check(np.array_equal(out["links"], want_links) and out["num_nodes"] == nb,
+                      f"{run} {name} links")
+            else:
+                ref = want[name] if name == "exact" else want[f"{name} {nm}"]
+                check(np.array_equal(out["ids"], ref[1].cpu().numpy()), f"{run} {name} ids")
+                check(np.allclose(out["dists"], ref[0].cpu().numpy(), rtol=0, atol=1e-5),
+                      f"{run} {name} distances")
+            per_rank = out["launches"].tolist()
+            launches["scan_buckets"][f"{run} {name}"] = [r[0] for r in per_rank]
+            launches["gather_distances"][f"{run} {name}"] = [r[1] for r in per_rank]
+            print(f"    {name}: {out['seconds']:.3f} s, equal to the single device; launches per rank "
+                  f"(K1, K2) {per_rank}")
+            kernel = "scan_buckets" if name == "fused" else "gather_distances"
+            if name not in ("exact",):
+                check(all(x > 0 for x in launches[kernel][f"{run} {name}"]), f"{run} {name} launched {kernel}")
+    fused_1 = want["fused 1"][1].cpu().numpy()
+    print(f"  fused over 4 shards against one scan of the table: ids equal in "
+          f"{float((want['fused 4'][1].cpu().numpy() == fused_1).mean()):.4f} of the slots "
+          f"(each shard keeps its own shortlist)")
+
+    # the kernels at the shapes only the shards give them: K1 on a shard's
+    # rows, K2 scoring a shard's table
+    qb, rows, pen, nlim, t, L = rec.args
+    variant = scan_variant(qb, rows, pen, t, L)
+    check(rec.args is not None, "K1 was recorded on a shard")
+    k1_err = k1_against_plain(*rec.args, "a (1, 4) shard")
+    n_local = -(-g.vectors.shape[0] // 4)
+    ids = torch.randint(0, n_local, (len(queries), e_f * m), dtype=torch.int32, device="cuda")
+    k2_err = k2_against_plain(g.vectors[:n_local], ids, q, MetricType.L2, "a (1, 4) shard's rows")
+    print(f"  K1 on a (1, 4) shard: rows {tuple(rows.shape)} n_valid {nlim} T={t} L={L} "
+          f"({variant}), max abs err {k1_err:g}; K2 on a shard of {n_local} rows, B x C = "
+          f"{tuple(ids.shape)}: bit-equal")
+
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(4, device="cuda", backend="gloo")
+    print(f"  dry run at 4 ranks on a {dry['mesh']} mesh: every step checked "
+          f"({time.perf_counter() - t0:.1f} s)")
+    return launches, k1_err, k2_err
+
+
 def main() -> int:
     quick = "--quick" in sys.argv[1:]
     import torch
@@ -958,6 +1119,9 @@ def main() -> int:
         k2["launches_reordered_search"] = phase_reorder(path)
         phase_pq_graph(path)
         k1["launches_harness"], k2["launches_harness"] = phase_harness(path)
+        sharded, k1_shard, k2_shard = phase_sharded(path)
+        k1["launches_sharded"] = sharded["scan_buckets"]
+        k2["launches_sharded"] = sharded["gather_distances"]
         del path
         head, k2_compact = phase_headline()
         k1["launches_headline"] = head["kernel_launches"]["scan_buckets"]
@@ -971,8 +1135,8 @@ def main() -> int:
         kernels.append(k1p)
         k1["launches"] = launches["scan_buckets"]
         k2["launches"] = launches["gather_distances"]
-        k1_err = max(k1_err, k1_main, err_1m)
-        k2_err = max(k2_err, k2_main, k2_compact)
+        k1_err = max(k1_err, k1_main, err_1m, k1_shard)
+        k2_err = max(k2_err, k2_main, k2_compact, k2_shard)
     k1["max_abs_err"], k2["max_abs_err"] = k1_err, k2_err
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -281,6 +281,29 @@ def beam_search_core(
     return BeamResults(beam_d, beam_i, dcomp, hops)
 
 
+def table_blocks(vectors: torch.Tensor, queries: torch.Tensor, metric: MetricType):
+    """(score_block, entry_block) of `beam_search_core` over a raw table:
+    the hop scores ids through K2 (`gather_distances`) on float tables and
+    exactly in int32 on integer ones; the entry scan is one [NI, d] gather
+    and one matmul for all B x NI distances. Integer queries against an
+    integer table keep the int32 path; other queries are widened to
+    float32."""
+    if not (_is_int(queries) and _is_int(vectors)):
+        queries = queries.to(torch.float32)
+
+    if _is_int(vectors):
+        def score_block(ids):
+            return query_block_distances(queries, vectors[ids.long()], metric)
+    else:
+        def score_block(ids):
+            return gather_distances(vectors, ids, queries, metric)
+
+    def entry_block(cand):
+        return pairwise_distances(queries, vectors[cand.long()], metric)
+
+    return score_block, entry_block
+
+
 def beam_search(
     vectors: torch.Tensor,
     links: torch.Tensor,
@@ -304,21 +327,7 @@ def beam_search(
     slice is a view; the hop gathers its rows from it."""
     if 0 < m_search < links.shape[1]:
         links = links[:, :m_search]
-    # integer queries against an integer table keep the exact int32 path
-    if not (_is_int(queries) and _is_int(vectors)):
-        queries = queries.to(torch.float32)
-
-    if _is_int(vectors):
-        def score_block(ids):
-            return query_block_distances(queries, vectors[ids.long()], metric)
-    else:
-        def score_block(ids):
-            return gather_distances(vectors, ids, queries, metric)
-
-    def entry_block(cand):
-        # one [NI, d] gather + one matmul for all B x NI entry distances
-        return pairwise_distances(queries, vectors[cand.long()], metric)
-
+    score_block, entry_block = table_blocks(vectors, queries, metric)
     return beam_search_core(
         links,
         num_nodes,
@@ -385,4 +394,5 @@ __all__ = [
     "beam_search",
     "beam_search_core",
     "safe_query_batch",
+    "table_blocks",
 ]

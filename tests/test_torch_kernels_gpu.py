@@ -464,3 +464,46 @@ def test_routed_scan_on_card_matches_cpu(cuda):
     assert torch.allclose(gd.cpu(), cd, rtol=1e-4, atol=1e-4)
     again = routed_knn(rs, q, 5, **kw)
     assert torch.equal(again[0], gd) and torch.equal(again[1], gi)
+
+
+@pytest.mark.parametrize("backend,shape", [("nccl", (1, 1)), ("gloo", (1, 2)), ("gloo", (2, 1))])
+def test_sharded_paths_on_card_equal_single_device(cuda, backend, shape):
+    # NCCL takes one card a rank; two gloo ranks share card 0. The sharded
+    # search, fused scan and mesh build equal the single-device port's, and
+    # every rank launches K2 in the search and K1 in the fused scan
+    from flatnav_tpu_torch.data_type import to_numpy
+    from flatnav_tpu_torch.index.build import add_batch
+    from flatnav_tpu_torch.index.graph import make_empty_graph
+    from flatnav_tpu_torch.index.search import batched_search
+    from flatnav_tpu_torch.ops import fused_knn
+    from flatnav_tpu_torch.parallel import run_ranks
+    from flatnav_tpu_torch.parallel.dryrun import run_cases
+    from flatnav_tpu_torch.parallel.sharded_exact import shards_on_one_device
+
+    data, q = _clustered(6000, 64, 256)
+    g = add_batch(make_empty_graph(6000, 64, 16), data, np.arange(6000), ef_construction=64,
+                  metric=MetricType.L2)
+    graph = {"vectors": to_numpy(g.vectors), "links": to_numpy(g.links), "labels": to_numpy(g.labels),
+             "num_nodes": g.num_nodes, "capacity": g.capacity}
+    build = {"data": data[:2000], "capacity": 2000, "max_edges": 16, "ef_construction": 64,
+             "metric": MetricType.L2}
+    spec = "model" if shape[1] > 1 else "replicated"
+    cases = [
+        {"op": "search", "args": {"graph": graph, "queries": q, "k": 10, "ef": 64, "expand_factor": 4}},
+        {"op": "exact", "args": {"vectors": data, "num_nodes": 6000, "queries": q, "k": 10, "rerank": 32,
+                                 "fused": True}},
+        {"op": "build", "args": {**build, "table_spec": spec}},
+    ]
+    search, fused, built = run_ranks(run_cases, shape[0] * shape[1], backend=backend, device="cuda",
+                                     timeout=600, args=(cases, *shape, "cuda"))
+    qd = torch.from_numpy(q).to(cuda)
+    want = batched_search(g.vectors, g.links, g.labels, g.num_nodes, qd, k=10, ef=64, expand_factor=4)
+    assert np.array_equal(search["labels"], want.labels.cpu().numpy())
+    np.testing.assert_allclose(search["dists"], want.dists.cpu().numpy(), rtol=0, atol=1e-5)
+    _, ids = shards_on_one_device(lambda r, nv: fused_knn(r, qd, 10, rerank=32, n_valid=nv),
+                                  torch.from_numpy(data).to(cuda), 6000, shape[1], 10)
+    assert np.array_equal(fused["ids"], ids.cpu().numpy())
+    ref = add_batch(make_empty_graph(2000, 64, 16), data[:2000], np.arange(2000), ef_construction=64,
+                    metric=MetricType.L2)
+    assert np.array_equal(built["links"], to_numpy(ref.links)[: built["links"].shape[0]])
+    assert (search["launches"][:, 1] > 0).all() and (fused["launches"][:, 0] > 0).all()
