@@ -10,13 +10,14 @@ Phases, in order; any failure raises and the script exits nonzero:
      torch and CUDA versions, and every kernel under
      flatnav_tpu_torch/csrc built by nvcc (in parallel) with its seconds.
   2. each kernel against its plain PyTorch version, on the card:
-     K2 gather_distances bit-equal (torch.equal) at d in {7, 37, 128, 960},
+     K2 gather_distances bit-equal (torch.equal) at d in {7, 37, 100, 128, 960},
      L2/IP, f32/bf16/f16 tables, ragged B x C; K1 scan_buckets bit-equal on
      uint8/int8 tables and within 1e-5 of the key magnitude on bf16 tables
      (ids equal wherever a bucket's best two keys differ by more), at
-     d in {37, 64, 128, 256}, L2/IP, N not a multiple of the tile and
-     n_valid < N; bf16 at d in {64, 128, 256} takes K1's "wgmma" variant,
-     the rest its "mma" variant (the wrapper picks by shape).
+     d in {37, 64, 128, 256} and bf16 also at d in {100, 960}, L2/IP, N not
+     a multiple of the tile and n_valid < N; bf16 at d in {64, 128, 256}
+     takes K1's "wgmma" variant, the rest its "mma" variant (the wrapper
+     picks by shape).
   3. the main path at full width, the README configuration: clustered data
      (seed 0x5EED), N=100,000, d=128 float32, L2, M=32, ef_construction=100,
      4,096 queries, K=10: create -> add -> search(ef_search=192) ->
@@ -62,10 +63,11 @@ Phases, in order; any failure raises and the script exits nonzero:
      present and finite, recall exact = 1.0, fused >= 0.98, graph >= 0.90 at
      ef=192 and not decreasing in ef, the latency percentiles ordered,
      distance_computations > 0, and K1 and K2 must have been launched. Then
-     the two CLIs as subprocesses: tools.construct builds and saves the 100k
-     index, tools.query sweeps it with and without --reorder.
-  8. the headline benchmark (bench/headline.py) at its defaults as a
-     subprocess: the last line is parsed and printed whole; its baseline must
+     the two CLIs: tools.construct (`main`, in this process) builds and saves
+     the 100k index, tools.query sweeps it as a `python -m` subprocess, then
+     in this process with --reorder.
+  8. the headline benchmark (bench/headline.py) at its defaults, its `main`
+     in this process: the last line is parsed and printed whole; its baseline must
      come from baseline_ref.json (the workload key matches), every engine's
      recall is held to the limits above, the winner's to 0.95, mfu <= 1, and
      its own K1 and K2 launch counts must be above zero. The graph point it
@@ -78,7 +80,8 @@ Phases, in order; any failure raises and the script exits nonzero:
      recorded in benchmarks/results_routed_scan.json, and routed_knn's time
      is printed beside fast_knn's (CUDA events).
   10. parallel/ on the main path's (reordered) graph, data and queries, run
-     after phase 7: a (1, 1) NCCL mesh runs every sharded function
+     after phase 7: a (1, 1) NCCL mesh (a process group of this process
+     alone) runs every sharded function
      (sharded_search E=16, data_parallel_search, sharded_exact_search exact
      and fused, sharded_pq_scan with phase 6's quantizer and raw rerank, the
      mesh build in both layouts over the first 10,000 rows); four gloo ranks
@@ -88,8 +91,17 @@ Phases, in order; any failure raises and the script exits nonzero:
      two-phase scans: the same engine shard by shard), and each rank must
      have launched its kernels (per-rank counts printed and in the kernels
      line). K1 on a shard's rows and K2 on a shard's table are held against
-     their plain versions; then the dry run (parallel.dryrun_multichip) at
-     4 gloo ranks.
+     their plain versions. The two gloo meshes and the dry run
+     (parallel.dryrun_multichip's rank program) share one start of the four
+     ranks (parallel.dryrun.run_meshes).
+  11. the north-star runners (bench/northstar.py, bench/bigann_10m.py,
+     bench/bigann_100m.py) through `main(argv)` at a small scale: angular
+     (d=100, IP) and gist (d=960) at 100k rows with one graph point, the
+     BigANN-class 10M runner at 100k uint8 rows, the 100M runner at 1M rows
+     with its scan engines only; 2,048 queries each. Counts zeroed before each
+     run and read after it; recalls held to the floors above phase_northstar;
+     K1's "mma" variant (d=100, d=960, uint8 d=128) timed and held against
+     its plain version at each run's shapes, K2 at the d=100 / d=960 hops.
 
 The line before the last is one JSON object with each kernel's launches,
 error against its plain version, times and bound; the last line is
@@ -198,6 +210,10 @@ def k2_against_plain(vectors, ids, queries, metric, tag) -> float:
     return float((got - want).abs().max())
 
 
+#: K2's widths in phase 2: angular's d=100 and gist's d=960 among them
+K2_WIDTHS = (7, 37, 100, 128, 960)
+
+
 def phase_kernels(rng):
     """-> (K2 max abs error, K1 max abs error)"""
     import torch
@@ -208,7 +224,7 @@ def phase_kernels(rng):
 
     dev = torch.device("cuda")
     k2_err = 0.0
-    for d in (7, 37, 128, 960):
+    for d in K2_WIDTHS:
         for metric in (MetricType.L2, MetricType.IP):
             for dtype in (torch.float32, torch.bfloat16, torch.float16):
                 n, b, c = 5000, 37, 129  # ragged B x C
@@ -217,63 +233,31 @@ def phase_kernels(rng):
                 q = torch.from_numpy(rng.standard_normal((b, d), dtype="float32")).to(dev)
                 k2_err = max(k2_err, k2_against_plain(
                     vec, ids, q, metric, f"d={d} {metric.value} {dtype}"))
-    print("K2 gather_distances: bit-equal to the plain version on 24 cases")
+    print(f"K2 gather_distances: bit-equal to the plain version on {6 * len(K2_WIDTHS)} cases")
 
     k1_err = 0.0
     t, L = 2048, 16
-    for d in (37, 64, 128, 256):
+    cases = [(d, dtype) for d in (37, 64, 128, 256)
+             for dtype in (torch.uint8, torch.int8, torch.bfloat16)]
+    # the north-star widths: angular's d=100 and gist's d=960, both "mma"
+    cases += [(d, torch.bfloat16) for d in (100, 960)]
+    for d, dtype in cases:
         for metric in (MetricType.L2, MetricType.IP):
-            for dtype in (torch.uint8, torch.int8, torch.bfloat16):
-                n, nlim, qc = 10000, 9000, 100  # n not a multiple of t
-                if dtype == torch.bfloat16:
-                    rows = torch.from_numpy(rng.standard_normal((n, d), dtype="float32")).to(dev, dtype)
-                    q = torch.from_numpy(rng.standard_normal((qc, d), dtype="float32")).to(dev, dtype)
-                else:
-                    lo, hi = (0, 256) if dtype == torch.uint8 else (-128, 128)
-                    rows = torch.from_numpy(rng.integers(lo, hi, (n, d)).astype("int16")).to(dev, dtype)
-                    q = torch.from_numpy(rng.integers(lo, hi, (qc, d)).astype("int16")).to(dev).to(torch.bfloat16)
-                pen = (squared_norms(rows) if metric == MetricType.L2
-                       else torch.zeros(n, device=dev))
-                k1_err = max(k1_err, k1_against_plain(
-                    q, rows, pen, nlim, t, L, f"d={d} {metric.value} {dtype}"))
-    print(f"K1 scan_buckets: 8-bit bit-equal, bf16 max abs err {k1_err:g} on 24 cases; "
-          f"launches by variant {scan_buckets.variants}")
+            n, nlim, qc = 10000, 9000, 100  # n not a multiple of t
+            if dtype == torch.bfloat16:
+                rows = torch.from_numpy(rng.standard_normal((n, d), dtype="float32")).to(dev, dtype)
+                q = torch.from_numpy(rng.standard_normal((qc, d), dtype="float32")).to(dev, dtype)
+            else:
+                lo, hi = (0, 256) if dtype == torch.uint8 else (-128, 128)
+                rows = torch.from_numpy(rng.integers(lo, hi, (n, d)).astype("int16")).to(dev, dtype)
+                q = torch.from_numpy(rng.integers(lo, hi, (qc, d)).astype("int16")).to(dev).to(torch.bfloat16)
+            pen = (squared_norms(rows) if metric == MetricType.L2
+                   else torch.zeros(n, device=dev))
+            k1_err = max(k1_err, k1_against_plain(
+                q, rows, pen, nlim, t, L, f"d={d} {metric.value} {dtype}"))
+    print(f"K1 scan_buckets: 8-bit bit-equal, bf16 max abs err {k1_err:g} on {2 * len(cases)} "
+          f"cases; launches by variant {scan_buckets.variants}")
     return k2_err, k1_err
-
-
-class CallRecorder:
-    """Stands in for a kernel wrapper where a module calls it and keeps the
-    arguments of the `nth` call that `keep(*args)` accepts since the last
-    reset; the wrapper it calls counts its own launches."""
-
-    def __init__(self, fn, keep=lambda *args: True, nth=1):
-        self.fn, self.keep, self.nth = fn, keep, nth
-        self.reset()
-
-    def reset(self):
-        self.seen, self.args = 0, None
-
-    # the wrapper counts its launches through its module's name, which
-    # names this recorder while it stands in
-    @property
-    def launches(self):
-        return self.fn.launches
-
-    @launches.setter
-    def launches(self, value):
-        self.fn.launches = value
-
-    def __getattr__(self, name):  # the wrapper's other counters
-        if name == "fn":
-            raise AttributeError(name)
-        return getattr(self.fn, name)
-
-    def __call__(self, *args):
-        if self.keep(*args):
-            self.seen += 1
-            if self.seen == self.nth:
-                self.args = tuple(a.clone() if hasattr(a, "clone") else a for a in args)
-        return self.fn(*args)
 
 
 def phase_main_path():
@@ -281,6 +265,7 @@ def phase_main_path():
     import torch
 
     import flatnav_tpu_torch
+    from flatnav_tpu_torch.bench.measure import CallRecorder
     from flatnav_tpu_torch.bench.synth import clustered
     from flatnav_tpu_torch.index import search as search_mod
     from flatnav_tpu_torch.ops import brute_force_knn
@@ -543,7 +528,8 @@ def phase_reorder(path):
         with open(mtx, "w") as f:
             f.write("%%MatrixMarket matrix coordinate pattern general\n")
             f.write(f"{n} {n} {int(keep.sum())}\n")
-            np.savetxt(f, np.stack([rows[keep] + 1, cols[keep] + 1], axis=1), fmt="%d")
+            pairs = np.stack([rows[keep] + 1, cols[keep] + 1], axis=1)
+            f.write(("%d %d\n" * len(pairs)) % tuple(pairs.ravel().tolist()))
         t_write = time.perf_counter() - t0
         t0 = time.perf_counter()
         fresh = flatnav_tpu_torch.index.create(
@@ -746,6 +732,17 @@ def phase_pq_scan(table):
     return k2_launches
 
 
+def _in_process(main, argv) -> str:
+    """Run a module's `main(argv)` in this process; -> what it printed."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    return buf.getvalue()
+
+
 def _subprocess(argv, what, timeout=600):
     """Run `python argv` from the checkout; a nonzero exit fails the smoke."""
     import subprocess
@@ -767,6 +764,8 @@ def phase_harness(path):
     from flatnav_tpu_torch.bench import run_benchmark
     from flatnav_tpu_torch.ops.fused_scan import scan_buckets
     from flatnav_tpu_torch.ops.gather_distance import gather_distances
+    from flatnav_tpu_torch.tools import construct as construct_cli
+    from flatnav_tpu_torch.tools import query as query_cli
 
     data, queries, gt, k = (path[x] for x in ("data", "queries", "gt", "k"))
     with tempfile.TemporaryDirectory(dir=REPO) as tmp:
@@ -831,15 +830,16 @@ def phase_harness(path):
 
         index_file = os.path.join(tmp, "cli_index.npz")
         t0 = time.perf_counter()
-        out = _subprocess(["-m", "flatnav_tpu_torch.tools.construct", "0", files["train"], "32",
-                           "100", index_file], "tools.construct")
+        out = _in_process(construct_cli.main, ["0", files["train"], "32", "100", index_file])
         check("saved index" in out, "tools.construct saved the index")
         built = [ln for ln in out.splitlines() if ln.startswith("build time")]
-        print(f"CLI construct: {built[0]} ({time.perf_counter() - t0:.1f} s with the process)")
+        print(f"CLI construct: {built[0]} ({time.perf_counter() - t0:.1f} s in this process)")
+        query = ["-m", "flatnav_tpu_torch.tools.query", index_file, files["queries"], files["gtruth"],
+                 "--ef-search", "100", "200", "--k", str(k)]
         for extra in ((), ("--reorder",)):
-            out = _subprocess(["-m", "flatnav_tpu_torch.tools.query", index_file, files["queries"],
-                               files["gtruth"], "--ef-search", "100", "200", "--k", str(k), *extra],
-                              "tools.query")
+            # the first run as `python -m`, the second in this process
+            out = (_in_process(query_cli.main, [*query[2:], *extra]) if extra
+                   else _subprocess(query, "tools.query"))
             lines = [ln for ln in out.splitlines() if ln.startswith("ef_search=")]
             check(len(lines) == 2, "tools.query printed one line per ef_search")
             recalls = [float(ln.split(f"recall@{k}=")[1].split()[0]) for ln in lines]
@@ -849,16 +849,17 @@ def phase_harness(path):
 
 
 def phase_headline():
-    """Phase 8: the headline benchmark as a subprocess, then one graph point
+    """Phase 8: the headline benchmark (`main` in this process), then one graph point
     of its saved index with the search options. -> (its line, K2 max abs
     error at the compacted hop)"""
     import numpy as np
     import torch
 
     from flatnav_tpu_torch.bench import headline
-    from flatnav_tpu_torch.index import search as search_mod
+    from flatnav_tpu_torch.bench._northstar import recorded_hop
     from flatnav_tpu_torch.index.serialize import load_index
     from flatnav_tpu_torch.ops import brute_force_knn
+    from flatnav_tpu_torch.ops.fused_scan import scan_buckets
     from flatnav_tpu_torch.ops.gather_distance import gather_distances
 
     with open(os.path.join(REPO, "baseline_ref.json")) as f:
@@ -867,10 +868,11 @@ def phase_headline():
         saved = ["--index", os.path.join(tmp, "headline_index.npz"),
                  "--queries-file", os.path.join(tmp, "headline_queries.npy")]
         t0 = time.perf_counter()
-        out = _subprocess(["-m", "flatnav_tpu_torch.bench.headline", *saved], "bench.headline",
-                          timeout=900)
+        scan_buckets.launches = 0
+        gather_distances.launches = 0
+        out = _in_process(headline.main, saved)
         line = json.loads(out.strip().splitlines()[-1])
-        print(f"headline ({time.perf_counter() - t0:.1f} s with the process): {json.dumps(line)}")
+        print(f"headline ({time.perf_counter() - t0:.1f} s): {json.dumps(line)}")
         check("engine_faults" not in line, "no engine_faults key")
         check(line["workload_key"] == ref["workload_key"] and line["baseline_qps"] == ref["qps"],
               "the headline's baseline is baseline_ref.json's (the workload key matches)")
@@ -891,9 +893,7 @@ def phase_headline():
         _, gt = brute_force_knn(g.vectors[: g.num_nodes], q, 10, metric)
         gt = gt.cpu().numpy()
         ef, m = line["ef_search"], g.links.shape[1]
-        rec = CallRecorder(gather_distances, lambda v, ids, qq, mt: ids.shape[1] == 512, nth=3)
-        search_mod.gather_distances = rec
-        try:
+        with recorded_hop(512, nth=3) as rec:
             for name, opts in (("full", {}), ("m_search=16", {"ms": 16}),
                                ("compact_width=512", {"cw": 512})):
                 def run():
@@ -907,8 +907,6 @@ def phase_headline():
                 print(f"  graph E=64 ef={ef} M={m} {name}: recall@10 {recall(labels, gt):.4f}  "
                       f"qps {qps:.1f}  K2 launches {launches}")
                 check(launches > 0, f"the {name} search launched K2")
-        finally:
-            search_mod.gather_distances = gather_distances
     check(rec.args is not None and tuple(rec.args[1].shape) == (4096, 512),
           "a compacted hop of C=512 was recorded")
     k2_err = k2_against_plain(*rec.args, "compacted hop, C=512")
@@ -953,7 +951,9 @@ def phase_sharded(path):
     {run: {case: [per-rank launches]}} for K1 and for K2."""
     import numpy as np
     import torch
+    import torch.distributed as dist
 
+    from flatnav_tpu_torch.bench.measure import CallRecorder
     from flatnav_tpu_torch.data_type import to_numpy
     from flatnav_tpu_torch.index.build import add_batch
     from flatnav_tpu_torch.index.graph import make_empty_graph
@@ -962,8 +962,8 @@ def phase_sharded(path):
     from flatnav_tpu_torch.ops import fused_scan as fused_mod
     from flatnav_tpu_torch.ops.fused_scan import scan_buckets, scan_variant
     from flatnav_tpu_torch.ops.gather_distance import gather_distances
-    from flatnav_tpu_torch.parallel import dryrun_multichip, run_ranks
-    from flatnav_tpu_torch.parallel.dryrun import run_cases
+    from flatnav_tpu_torch.parallel import run_ranks
+    from flatnav_tpu_torch.parallel.dryrun import run_cases, run_meshes
     from flatnav_tpu_torch.parallel.sharded_exact import shards_on_one_device
     from flatnav_tpu_torch.quantization import ProductQuantizer
     from flatnav_tpu_torch.quantization.pq import pq_scan_knn
@@ -997,6 +997,8 @@ def phase_sharded(path):
     runs = {"nccl 1x1": ("nccl", (1, 1), list(args)),
             "gloo 1x4": ("gloo", (1, 4), ["search", "exact", "fused", "pq", "build_model"]),
             "gloo 2x2": ("gloo", (2, 2), ["dp_search", "build_replicated"])}
+    #: the gloo meshes and the dry run share one start of four ranks
+    gloo_runs = [run for run, (backend, _, _) in runs.items() if backend == "gloo"]
 
     # the single-device port on the same inputs; K1 on the first shard of
     # the (1, 4) fused scan is recorded on the way
@@ -1030,12 +1032,28 @@ def phase_sharded(path):
           f"queries at ef={ef} (model-sharded E={e_f}, data-parallel E=1)")
 
     launches = {"scan_buckets": {}, "gather_distances": {}}
+    # the one NCCL rank is this process: a group of one, torn down after
+    t0 = time.perf_counter()
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    with tempfile.TemporaryDirectory() as rdv:
+        dist.init_process_group("nccl", init_method="file://" + os.path.join(rdv, "rendezvous"),
+                                rank=0, world_size=1)
+        try:
+            results = {"nccl 1x1": run_cases([args[x] for x in runs["nccl 1x1"][2]], 1, 1, "cuda")}
+        finally:
+            dist.destroy_process_group()
+    print(f"  nccl 1x1: {time.perf_counter() - t0:.1f} s in this process")
+    t0 = time.perf_counter()
+    gloo = run_ranks(run_meshes, 4, backend="gloo", device="cuda", timeout=900,
+                     args=([(*runs[r][1], [args[x] for x in runs[r][2]]) for r in gloo_runs], "cuda",
+                           True))
+    results.update(zip(gloo_runs, gloo))
+    dry = gloo[-1]
+    print(f"  {' and '.join(gloo_runs)} and the dry run at 4 ranks on a {dry['mesh']} mesh (every "
+          f"step checked): {time.perf_counter() - t0:.1f} s with one start of the four ranks")
     for run, (backend, shape, names) in runs.items():
-        t0 = time.perf_counter()
-        outs = run_ranks(run_cases, shape[0] * shape[1], backend=backend, device="cuda", timeout=900,
-                         args=([args[x] for x in names], *shape, "cuda"))
-        print(f"  {run} ({time.perf_counter() - t0:.1f} s with the ranks' start):")
-        for name, out in zip(names, outs):
+        print(f"  {run}:")
+        for name, out in zip(names, results[run]):
             nm = shape[1]
             if name in ("search", "dp_search"):
                 ref = want[name]
@@ -1077,12 +1095,120 @@ def phase_sharded(path):
     print(f"  K1 on a (1, 4) shard: rows {tuple(rows.shape)} n_valid {nlim} T={t} L={L} "
           f"({variant}), max abs err {k1_err:g}; K2 on a shard of {n_local} rows, B x C = "
           f"{tuple(ids.shape)}: bit-equal")
-
-    t0 = time.perf_counter()
-    dry = dryrun_multichip(4, device="cuda", backend="gloo")
-    print(f"  dry run at 4 ranks on a {dry['mesh']} mesh: every step checked "
-          f"({time.perf_counter() - t0:.1f} s)")
     return launches, k1_err, k2_err
+
+
+#: phase 11: rows of the north-star runs, queries of each, and the one graph
+#: point each northstar run takes (ef, expand factor)
+NS_ROWS, NS_QUERIES, NS_GRAPH_POINT = 100_000, 2048, (256, 16)
+#: recall@10 floors of phase 11, a few points under what an NVIDIA H100 80GB
+#: HBM3 (700.00 W) gave at these rows and NS_QUERIES queries, in the whole
+#: smoke from a `git archive` of the tree (PERF.md): {run: {engine: floor}}
+NS_FLOORS = {
+    # exact 1.0, fast 1.0, fused 0.9993, fusednr 0.9944, graph 0.9864
+    "angular": {"exact": 1.0, "fast": 0.99, "fused": 0.98, "fusednr": 0.98, "graph": 0.96},
+    # exact 1.0, fast 1.0, fused 0.9995, fusednr 0.9948, graph 0.9844
+    "gist": {"exact": 1.0, "fast": 0.99, "fused": 0.98, "fusednr": 0.98, "graph": 0.96},
+    # exact 1.0, fast 1.0, fused 0.9992, fusednr 0.9992, graph 0.9603, pq
+    # 0.9561 (rerank 512), pq4 0.7745 (rerank 1024)
+    "bigann 10M": {"exact": 1.0, "fast": 0.99, "fused": 0.98, "fusednr": 0.98, "graph": 0.93,
+                   "pq": 0.93, "pq4": 0.74},
+    # exact 1.0, fused 0.9999, fusednr 0.9999
+    "bigann 100M": {"exact": 1.0, "fused": 0.98, "fusednr": 0.98},
+}
+
+
+def phase_northstar():
+    """Phase 11: the north-star runners through `main(argv)` at a small
+    scale, in a scratch directory that is removed after: angular (d=100,
+    IP over normalised rows) and gist (d=960) at NS_ROWS rows with one graph
+    point, the BigANN-class 10M runner at NS_ROWS uint8 rows (graph, scans,
+    PQ at 8 and 4 bits), the 100M runner at 1M rows with its scan engines.
+    Kernel counts are zeroed before each run and read after it. Every
+    engine's recall is held to NS_FLOORS; K1 must launch its "mma" variant
+    in each run and K2 in the float graphs; the kernels alone at each run's
+    shapes come from the runners (`_northstar.k1_times` / `k2_times`: K1
+    within the bf16 tolerance of its plain version, bit-equal on 8-bit rows,
+    K2 bit-equal). -> {run: {"launches", "kernels", "seconds"}}."""
+    import contextlib
+
+    from flatnav_tpu_torch.bench import bigann_10m, bigann_100m, northstar
+    from flatnav_tpu_torch.ops.fused_scan import scan_buckets
+    from flatnav_tpu_torch.ops.gather_distance import gather_distances
+
+    n, nq = str(NS_ROWS), str(NS_QUERIES)
+    runs = [
+        ("angular", northstar, ["--config", "angular", "--n", n, "--efc", "200",
+                                "--centers-per-64k", "26"]),
+        ("gist", northstar, ["--config", "gist", "--n", n, "--efc", "100", "--centers-per-64k", "26"]),
+        ("bigann 10M", bigann_10m, ["--n", n, "--nq", nq]),
+        ("bigann 100M", bigann_100m, ["--n", "1000000", "--nq", nq, "--b", nq, "--no-pq"]),
+    ]
+    saved = {"scratch": os.environ.get("FLATNAV_SCRATCH"), "nq": northstar.NQ,
+             "ef": northstar.EF_SWEEP, "e": northstar.E_SWEEP,
+             "ef10": bigann_10m.EF_GRID, "e10": bigann_10m.E_GRID}
+    out = {}
+    with tempfile.TemporaryDirectory(dir=REPO) as tmp:
+        os.environ["FLATNAV_SCRATCH"] = tmp
+        northstar.NQ = NS_QUERIES
+        northstar.EF_SWEEP, northstar.E_SWEEP = (NS_GRAPH_POINT[0],), (NS_GRAPH_POINT[1],)
+        bigann_10m.EF_GRID, bigann_10m.E_GRID = (NS_GRAPH_POINT[0],), (NS_GRAPH_POINT[1],)
+        try:
+            for name, mod, argv in runs:
+                gather_distances.launches = 0
+                scan_buckets.launches = 0
+                scan_buckets.variants = dict.fromkeys(scan_buckets.variants, 0)
+                t0 = time.perf_counter()
+                with open(os.path.join(tmp, "runner.log"), "a") as log, \
+                        contextlib.redirect_stdout(log):
+                    res = mod.main([*argv, "--results-dir", tmp])
+                sec = time.perf_counter() - t0
+                launches = {"gather_distances": gather_distances.launches,
+                            "scan_buckets": scan_buckets.launches,
+                            "scan_buckets variants": dict(scan_buckets.variants)}
+                out[name] = {"launches": launches, "kernels": res.get("kernels"), "seconds": sec,
+                             "result": res}
+        finally:
+            northstar.NQ, northstar.EF_SWEEP, northstar.E_SWEEP = saved["nq"], saved["ef"], saved["e"]
+            bigann_10m.EF_GRID, bigann_10m.E_GRID = saved["ef10"], saved["e10"]
+            if saved["scratch"] is None:
+                os.environ.pop("FLATNAV_SCRATCH", None)
+            else:
+                os.environ["FLATNAV_SCRATCH"] = saved["scratch"]
+
+    for name, run in out.items():
+        res, floors, launches = run["result"], NS_FLOORS[name], run["launches"]
+        recalls = {e: res[f"{e}_engine"]["recall"] for e in ("exact", "fast", "fused", "fusednr")
+                   if res.get(f"{e}_engine")}
+        if res.get("sweep"):
+            recalls["graph"] = res["sweep"][0]["recall"]
+        for key, e in (("pq", "pq_scan_engine"), ("pq4", "pq4_scan_engine")):
+            if res.get(e):
+                recalls[key] = res[e]["recall"]
+        qps = {e: res[f"{e}_engine"]["qps"] for e in ("exact", "fast", "fused", "fusednr")
+               if res.get(f"{e}_engine")}
+        build = (f"build {res['build_seconds']} s, build peak {res['build_peak_bytes'] / 1e6:.1f} MB"
+                 if "build_seconds" in res else "no build")
+        print(f"north star {name} ({run['seconds']:.1f} s): {res['workload']}; {build}; "
+              f"launches {launches}")
+        print("  recall@10 " + ", ".join(f"{e} {r:.4f}" for e, r in recalls.items())
+              + "; qps " + ", ".join(f"{e} {q:.1f}" for e, q in qps.items()))
+        if res.get("graph_operating_point"):
+            print(f"  graph point {res['graph_operating_point']}")
+        for e, floor in floors.items():
+            check(recalls[e] >= floor, f"north star {name}: {e} recall {recalls[e]} >= {floor}")
+        check(launches["scan_buckets variants"]["mma"] > 0, f"north star {name} launched K1's mma variant")
+        if name in ("angular", "gist"):
+            check(launches["gather_distances"] > 0, f"north star {name} launched K2")
+        for kname, k in (run["kernels"] or {}).items():
+            if k:
+                print(f"  {kname} alone: " + json.dumps(k))
+        k1 = (run["kernels"] or {}).get("scan_buckets")
+        check(k1 is not None and k1["variant"] == "mma", f"north star {name}: K1 timed on mma")
+        # 8-bit rows were held bit-equal inside the runner; bf16 ones here
+        check(k1["max_abs_err"] <= 1e-5 * k1["key_max"],
+              f"north star {name}: K1 within 1e-5 of its largest key of the plain version")
+    return out
 
 
 def main() -> int:
@@ -1098,10 +1224,20 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import numpy as np
 
-    t_start = time.perf_counter()
+    t_start = last = time.perf_counter()
+    phase_s = {}
+
+    def mark(name):
+        nonlocal last
+        now = time.perf_counter()
+        phase_s[name] = round(now - last, 1)
+        last = now
+
     phase_build()
+    mark("1 build")
     rng = np.random.default_rng(0xF1A7)
     k2_err, k1_err = phase_kernels(rng)
+    mark("2 kernels")
     k1 = {"name": "scan_buckets", "route": "cuda", "variant": "wgmma",
           "source": "flatnav_tpu_torch/csrc/fused_scan.cu",
           "replaces": "flatnav_tpu/ops/fused_scan.py:159"}
@@ -1116,20 +1252,48 @@ def main() -> int:
         launches, hop, wave, k1_main, k2_main, path = phase_main_path()
         k2.update(k2_timing(hop, "search hop"))
         k2["build_wave"] = k2_timing(wave, "build wave")
+        mark("3 main path")
         k2["launches_reordered_search"] = phase_reorder(path)
+        mark("5 reorder")
         phase_pq_graph(path)
+        mark("6a pq graph")
         k1["launches_harness"], k2["launches_harness"] = phase_harness(path)
+        mark("7 harness")
         sharded, k1_shard, k2_shard = phase_sharded(path)
+        mark("10 parallel")
         k1["launches_sharded"] = sharded["scan_buckets"]
         k2["launches_sharded"] = sharded["gather_distances"]
         del path
         head, k2_compact = phase_headline()
+        mark("8 headline")
         k1["launches_headline"] = head["kernel_launches"]["scan_buckets"]
         k2["launches_headline"] = head["kernel_launches"]["gather_distances"]
         phase_routed_scan()
+        mark("9 routed scan")
         err_1m, k1_times, k1p_times, table = phase_scan_1m()
+        mark("4 1M scan")
         k2["launches_pq_raw_rerank"] = phase_pq_scan(table)
         del table
+        mark("6b pq scan")
+        north = phase_northstar()
+        mark("11 north star")
+        k1_mma = north["gist"]["kernels"]["scan_buckets"]
+        kernels.append({
+            "name": "scan_buckets mma", "route": "cuda", "variant": "mma",
+            "source": "flatnav_tpu_torch/csrc/fused_scan.cu",
+            "replaces": "flatnav_tpu/ops/fused_scan.py:159",
+            "launches": sum(r["launches"]["scan_buckets variants"]["mma"] for r in north.values()),
+            "launches_by_run": {r: v["launches"]["scan_buckets variants"]["mma"]
+                                for r, v in north.items()},
+            "max_abs_err": max(v["kernels"]["scan_buckets"]["max_abs_err"] for v in north.values()),
+            **{x: k1_mma[x] for x in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "library_ms": k1_mma["matmul_bf16_ms"],
+            "timed_at": {x: k1_mma[x] for x in ("qc", "n", "d", "rows", "L", "T")},
+            "shapes": {r: v["kernels"]["scan_buckets"] for r, v in north.items()},
+        })
+        k2["launches_northstar"] = {r: v["launches"]["gather_distances"] for r, v in north.items()}
+        k2["northstar_hops"] = {r: v["kernels"]["gather_distances"] for r, v in north.items()
+                                if v["kernels"].get("gather_distances")}
         k1.update(k1_times)
         k1p.update(k1p_times, max_abs_err=err_1m)
         kernels.append(k1p)
@@ -1138,6 +1302,7 @@ def main() -> int:
         k1_err = max(k1_err, k1_main, err_1m, k1_shard)
         k2_err = max(k2_err, k2_main, k2_compact, k2_shard)
     k1["max_abs_err"], k2["max_abs_err"] = k1_err, k2_err
+    print(f"seconds by phase: {phase_s}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -34,7 +34,7 @@ reference C++ engine on one CPU core) when its `workload_key` equals this
 run's, and are null otherwise. `peak_tflops` is the card's dense bf16 peak
 (`bench/measure.py`); `mfu` counts 2*N*d operations a query for a scan
 engine and is null for the graph. `kernel_launches` counts the launches of
-K1 and K2 over the whole run.
+K1 and K2 over the whole run, from a reading taken when `main` starts.
 
 `--time-only` loads the index and queries that a full run saved (`--index`,
 `--queries-file`) and times one engine configuration, printing
@@ -251,6 +251,7 @@ def main(argv=None) -> None:
     if args.time_only:
         _time_only(args, dev)
         return
+    launches_at_start = scan_buckets.launches, gather_distances.launches
     on_card = dev.type == "cuda"
     device_line = card() if on_card else "cpu"
     _log(f"device: {device_line}")
@@ -386,8 +387,8 @@ def main(argv=None) -> None:
         "baseline_qps": ref.get("qps"),
         "baseline_ef_search": ref.get("ef_search"),
         "baseline_recall": ref.get("recall"),
-        "kernel_launches": {"scan_buckets": scan_buckets.launches,
-                            "gather_distances": gather_distances.launches},
+        "kernel_launches": {"scan_buckets": scan_buckets.launches - launches_at_start[0],
+                            "gather_distances": gather_distances.launches - launches_at_start[1]},
         "device": device_line,
     }))
 

@@ -1,8 +1,10 @@
 """Timing and bounds shared by the port's measurement scripts.
 
-`chip_smoke.py`, `bench/profile_fused_stages.py` and `bench/kernel_ab.py`
-take the card's peaks, their CUDA-event timer, the card's name line and the
-bound of each kernel from here, so every script states the same numbers.
+`chip_smoke.py`, `bench/profile_fused_stages.py`, `bench/kernel_ab.py` and
+the north-star runners take the card's peaks, their CUDA-event timer, the
+card's name line, the bound of each kernel and `CallRecorder` (a kernel's
+arguments kept from a call on a module's path) from here, so every script
+states the same numbers.
 A bound is the larger of the bytes the function must move (each input read
 once, each output written once) over the memory rate and its operations
 over the peak rate for their type.
@@ -66,3 +68,40 @@ def scan_bound(qc: int, n: int, d: int, nb: int, row_bytes: int = 2):
     2 qc n d operations at the bf16 peak."""
     nbytes = qc * d * 2 + n * d * row_bytes + n * 4 + qc * nb * 8
     return _bound(nbytes, 2 * qc * n * d, BF16_FLOP_PER_S)
+
+
+class CallRecorder:
+    """Stands in for a kernel wrapper where a module calls it and keeps the
+    arguments of the `nth` call that `keep(*args)` accepts since the last
+    reset (tensors cloned, except the positions `shared` names, which are
+    kept by reference); the wrapper it calls counts its own launches."""
+
+    def __init__(self, fn, keep=lambda *args: True, nth=1, shared=()):
+        self.fn, self.keep, self.nth, self.shared = fn, keep, nth, shared
+        self.reset()
+
+    def reset(self):
+        self.seen, self.args = 0, None
+
+    # the wrapper counts its launches through its module's name, which
+    # names this recorder while it stands in
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, value):
+        self.fn.launches = value
+
+    def __getattr__(self, name):  # the wrapper's other counters
+        if name == "fn":
+            raise AttributeError(name)
+        return getattr(self.fn, name)
+
+    def __call__(self, *args):
+        if self.keep(*args):
+            self.seen += 1
+            if self.seen == self.nth:
+                self.args = tuple(a.clone() if hasattr(a, "clone") and i not in self.shared else a
+                                  for i, a in enumerate(args))
+        return self.fn(*args)

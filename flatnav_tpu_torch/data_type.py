@@ -30,6 +30,16 @@ class DataType(enum.Enum):
         return getattr(torch, self.value)
 
     @property
+    def numpy_dtype(self) -> np.dtype:
+        """The numpy dtype an array of this type has on the host. numpy has
+        no bfloat16, so bfloat16 maps to uint16, the bit view `to_numpy`
+        returns and `from_numpy(..., torch.bfloat16)` reads back (the JAX
+        package returns ml_dtypes' bfloat16 here)."""
+        if self is DataType.bfloat16:
+            return np.dtype(np.uint16)
+        return np.dtype(self.value)
+
+    @property
     def is_integer(self) -> bool:
         return self in (DataType.uint8, DataType.int8)
 
@@ -73,6 +83,16 @@ def from_numpy(a: np.ndarray, dtype: torch.dtype | None = None) -> torch.Tensor:
         return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
     t = torch.from_numpy(a.copy())
     return t if dtype is None else t.to(dtype)
+
+
+def host_tensor(a) -> torch.Tensor:
+    """A numpy array (or tensor) as a CPU tensor, without a copy where numpy
+    allows one: a read-only array (a memory-mapped file, say) is copied, as
+    torch cannot share memory it may not write."""
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.ascontiguousarray(a)
+    return torch.from_numpy(a if a.flags.writeable else a.copy())
 
 
 def resolve_device(device=None) -> torch.device:

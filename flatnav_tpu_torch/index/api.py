@@ -174,7 +174,7 @@ class Index:
                 raise ValueError("labels must have the same length as data")
         build_mod.add_batch(
             self._graph,
-            torch.from_numpy(np.ascontiguousarray(data)).to(self._data_type.torch_dtype),
+            dt.host_tensor(data).to(self._data_type.torch_dtype),
             labels_arr,
             ef_construction=ef_construction,
             metric=self._metric,
@@ -197,7 +197,7 @@ class Index:
         qdtype = (
             self._data_type.torch_dtype if self._data_type.is_integer else torch.float32
         )
-        return torch.from_numpy(np.ascontiguousarray(queries)).to(self._device, qdtype)
+        return dt.host_tensor(queries).to(self._device, qdtype)
 
     def search(
         self,
@@ -337,10 +337,10 @@ class Index:
         else:
             labels_arr = np.asarray(labels, dtype=np.int32)
         g = self._graph
-        g.vectors[n0 : n0 + n] = torch.from_numpy(np.ascontiguousarray(data)).to(
+        g.vectors[n0 : n0 + n] = dt.host_tensor(data).to(
             self._device, self._data_type.torch_dtype
         )
-        g.labels[n0 : n0 + n] = torch.from_numpy(labels_arr).to(self._device)
+        g.labels[n0 : n0 + n] = dt.host_tensor(labels_arr).to(self._device)
         g.num_nodes = n0 + n
         return self
 

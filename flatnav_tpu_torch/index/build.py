@@ -20,6 +20,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from flatnav_tpu_torch.data_type import host_tensor
 from flatnav_tpu_torch.index.graph import MAX_WAVE, GraphArrays
 from flatnav_tpu_torch.index.search import (
     _device_mem_limit,
@@ -39,9 +40,18 @@ def _next_pow2(x: int) -> int:
     return 1 << max(0, (x - 1)).bit_length()
 
 
-def _precomputes(w: int, c: int) -> bool:
-    """Whether `select_neighbors` takes the [W, C, C] product: it fits 1 GiB."""
-    return w * c * c * 4 <= (1 << 30)
+def _prune_itemsize(dtype: torch.dtype) -> int:
+    """Bytes an element of the prune's candidate rows takes: 8-bit rows are
+    promoted to float64 (exact products, see `select_neighbors`), every
+    other table to float32."""
+    return 8 if dtype in (torch.uint8, torch.int8) else 4
+
+
+def _precomputes(w: int, c: int, itemsize: int = 4) -> bool:
+    """Whether `select_neighbors` takes the [W, C, C] product of `itemsize`
+    -byte elements (`_prune_itemsize`): it fits 1 GiB. For 8-bit rows both
+    forms are exact, so the choice changes no result there."""
+    return w * c * c * itemsize <= (1 << 30)
 
 
 def select_neighbors(
@@ -63,7 +73,7 @@ def select_neighbors(
     wave's choice. The scan itself is sequential by nature."""
     w, c = cand_dists.shape
     if precompute is None:
-        precompute = _precomputes(w, c)
+        precompute = _precomputes(w, c, _prune_itemsize(cand_vecs.dtype))
     is_int = _is_int(cand_vecs)
     if is_int:
         # float64 products of 8-bit values are exact (see ops/distances.py)
@@ -194,7 +204,8 @@ def prune_wave(
 
     cand_vecs = gather_rows(cand_i.clamp_min(0))  # storage dtype
     kept_ids, _, kept_d = select_neighbors(
-        cand_d, cand_i, cand_vecs, m_sel, metric, precompute=_precomputes(w, cand_d.shape[1])
+        cand_d, cand_i, cand_vecs, m_sel, metric,
+        precompute=_precomputes(w, cand_d.shape[1], _prune_itemsize(new_vecs.dtype)),
     )
     return kept_ids, kept_d
 
@@ -357,11 +368,14 @@ def _safe_wave_size(
     intra_candidates: int,
     table_bytes: int,
     device="cpu",
+    prune_itemsize: int = 4,
 ) -> int:
     """Largest wave whose estimated working set fits the card (read from
     `torch.cuda.mem_get_info`); the build-side analog of
     search.safe_query_batch. Narrower waves only trade occupancy: wave
-    members get exact intra-wave candidates at any width."""
+    members get exact intra-wave candidates at any width.
+    `prune_itemsize` is the bytes of a candidate-row element in the prune
+    (`_prune_itemsize`: 8 for 8-bit tables)."""
     limit = _device_mem_limit(device)
     if not limit:
         return max_wave
@@ -374,7 +388,7 @@ def _safe_wave_size(
         return (
             _search_temp_bytes(w, ef_construction, e_f, m, d)
             + w * w * 4  # intra-wave pairwise block
-            + 2 * w * cand * d * 4  # candidate-row gather + prune scratch
+            + 2 * w * cand * d * prune_itemsize  # candidate-row gather + prune scratch
         )
 
     w = max_wave
@@ -481,6 +495,7 @@ def add_batch(
         table_bytes=graph.vectors.numel() * graph.vectors.element_size()
         + graph.links.numel() * 4,
         device=dev,
+        prune_itemsize=_prune_itemsize(graph.vectors.dtype),
     )
     committed = graph.num_nodes
     if committed + n > cap:
@@ -491,8 +506,8 @@ def add_batch(
     if n == 0:
         return graph
 
-    data = torch.as_tensor(data)
-    labels = torch.as_tensor(np.asarray(labels, dtype=np.int32))
+    data = host_tensor(data)
+    labels = host_tensor(np.asarray(labels, dtype=np.int32))
     pos = 0
     # the very first node gets no edges (Index.h:369-371)
     if committed == 0:

@@ -11,6 +11,10 @@ turns it off for cuBLAS matmuls and for cuDNN:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+The one exception is `fast_knn`'s ranking pass, which takes the JAX
+version's DEFAULT-precision form: bf16 operands, float32 accumulation
+(`bf16_dot`); its rerank is exact.
+
 Integer tables (uint8/int8) get exact products. cuBLAS has no int32 GEMM,
 so `exact_int_dot` multiplies in float64: every partial sum is an integer
 below 2^53 (|x.y| <= 255^2 * d), so the float64 product is exact in any
@@ -45,11 +49,23 @@ def _is_int(x: torch.Tensor) -> bool:
     return not (x.dtype.is_floating_point or x.dtype.is_complex)
 
 
+#: rows of an integer table widened to int32 at a time by `squared_norms`
+_NORM_ROWS = 1 << 22
+
+
 def squared_norms(x: torch.Tensor) -> torch.Tensor:
-    """Row-wise squared L2 norms, float32. x: [..., d] -> [...]."""
+    """Row-wise squared L2 norms, float32. x: [..., d] -> [...].
+
+    Integer rows are widened to int32 `_NORM_ROWS` rows at a time (exact
+    sums, so the chunking changes no bit): the whole widened copy of a
+    100M x 128 uint8 table would take 51 GB."""
     if _is_int(x):
-        xi = x.to(torch.int32)
-        return (xi * xi).sum(-1, dtype=torch.int32).to(torch.float32)
+        flat = x.reshape(-1, x.shape[-1])
+        out = torch.empty(flat.shape[0], dtype=torch.float32, device=x.device)
+        for lo in range(0, flat.shape[0], _NORM_ROWS):
+            xi = flat[lo : lo + _NORM_ROWS].to(torch.int32)
+            out[lo : lo + _NORM_ROWS] = (xi * xi).sum(-1, dtype=torch.int32).to(torch.float32)
+        return out.reshape(x.shape[:-1])
     xf = x.to(torch.float32)
     return (xf * xf).sum(-1)
 
@@ -151,6 +167,19 @@ def smallest_k(
     return _unrank_key(top)
 
 
+def bf16_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x [B, d] . y [C, d] -> [B, C] float32 products of the bf16-rounded
+    operands: the form of a DEFAULT-precision float32 dot on the TPU (one
+    bf16 pass, float32 accumulation). On the card one bf16 tensor-core
+    product with a float32 result (`out_dtype`); on the CPU, which has no
+    such product, the float32 matmul of the same rounded operands. Both sum
+    the same exact products, in different orders."""
+    xb, yb = x.to(torch.bfloat16), y.to(torch.bfloat16)
+    if xb.is_cuda:
+        return torch.mm(xb, yb.T, out_dtype=torch.float32)
+    return xb.to(torch.float32) @ yb.to(torch.float32).T
+
+
 def brute_force_knn(
     dataset: torch.Tensor,
     queries: torch.Tensor,
@@ -201,14 +230,23 @@ def fast_knn(
     metric: MetricType = MetricType.L2,
     tile_size: int = 131072,
     rerank: int = 32,
+    recall_target: float = 0.95,
     n_valid: int | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Two-phase kNN scan: a ranking-key pass keeps a `rerank`-wide
-    shortlist per query, then the shortlist is reranked by exact distances.
+    shortlist per query, then the shortlist is reranked by exact distances,
+    so the returned distances are exact.
 
-    The JAX version takes its per-tile shortlist with `approx_min_k`; torch
-    has no such call, so this one is exact (`smallest_k`). Integer tables
-    rank by exact int32 keys; float tables by float32 keys."""
+    Phase-1 keys: integer tables rank by exact int32 keys; float tables by
+    ||row||^2 - 2 q.row (or -q.row for IP) with the product taken over
+    bf16-rounded operands and accumulated in float32 (`bf16_dot`), the form
+    the JAX version's DEFAULT-precision dot takes on the TPU. The norms stay
+    float32.
+
+    The JAX version takes its per-tile shortlist with `approx_min_k` at
+    `recall_target`; torch has no such call, so this one is exact
+    (`smallest_k`) and `recall_target` bounds nothing. It is kept for the
+    JAX signature's sake."""
     n, d = dataset.shape
     b = queries.shape[0]
     r = max(rerank, k)
@@ -235,10 +273,9 @@ def fast_knn(
                 ys_i = (rows.to(torch.int32) ** 2).sum(-1, dtype=torch.int32)
                 key = (ys_i[None, :] - 2 * dots_i).to(torch.float32)
         else:
-            rf = rows.to(torch.float32)
-            dots = qf @ rf.T
+            dots = bf16_dot(qf, rows)
             key = -dots if metric == MetricType.IP else (
-                (rf * rf).sum(-1)[None, :] - 2.0 * dots
+                squared_norms(rows)[None, :] - 2.0 * dots
             )
         ids = start + iota
         key = torch.where((ids >= start_raw) & (ids < n_limit), key, float("inf"))
@@ -257,6 +294,7 @@ def fast_knn(
 
 __all__ = [
     "MetricType",
+    "bf16_dot",
     "brute_force_knn",
     "exact_int_dot",
     "fast_knn",

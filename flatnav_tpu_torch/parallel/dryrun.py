@@ -7,7 +7,9 @@ searches it model-sharded and data-parallel, runs the sharded exact and
 fused scans, builds and searches a table larger than a shard, then a PQ
 index, the sharded PQ scan and its 4-bit form, and checks every output.
 
-`run_cases(cases, data, model, device_type)` runs in every rank of a
+`run_meshes(runs, device_type, dryrun)` runs several meshes and the dry
+run in one start of the ranks. `run_cases(cases, data, model, device_type)`
+runs in every rank of a
 `(data, model)` mesh: each case names a sharded engine, its global numpy
 inputs and its options, and rank 0 returns each case's outputs as numpy
 arrays with its seconds and every rank's kernel launches. The tests and
@@ -165,6 +167,16 @@ def run_cases(cases, data: int, model: int, device_type: str):
     return out
 
 
+def run_meshes(runs, device_type: str, dryrun: bool = False):
+    """Rank program: `run_cases` on each (data, model, cases) of `runs` in
+    turn, every mesh over the one process group, then (with `dryrun`) the
+    dry run on all its ranks. -> [each run's `run_cases` list ..., the dry
+    run's summary or None]. One start of the ranks serves every mesh."""
+    out = [run_cases(cases, data, model, device_type) for data, model, cases in runs]
+    out.append(_dryrun_rank(dist.get_world_size(), device_type) if dryrun else None)
+    return out
+
+
 def dryrun_multichip(n_devices: int, *, device: str, backend: str, timeout: float = 600) -> dict:
     """The JAX package's multi-chip dry run on `n_devices` ranks (see the
     module docstring); raises if any step's output is wrong. Returns rank
@@ -249,4 +261,4 @@ def _dryrun_rank(n_devices: int, device_type: str) -> dict:
     }
 
 
-__all__ = ["dryrun_multichip", "run_cases"]
+__all__ = ["dryrun_multichip", "run_cases", "run_meshes"]

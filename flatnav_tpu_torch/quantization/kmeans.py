@@ -23,7 +23,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from flatnav_tpu_torch.data_type import resolve_device
+from flatnav_tpu_torch.data_type import host_tensor, resolve_device
 from flatnav_tpu_torch.ops.distances import MetricType, pairwise_distances
 
 
@@ -109,5 +109,5 @@ def kmeans(
     data = np.asarray(data, dtype=np.float32)
     cents0 = _INITS[init](data, k, rng)
     return _lloyd(
-        torch.from_numpy(data).to(dev), torch.from_numpy(cents0).to(dev), n_iters
+        host_tensor(data).to(dev), host_tensor(cents0).to(dev), n_iters
     )

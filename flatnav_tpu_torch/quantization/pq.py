@@ -31,7 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from flatnav_tpu_torch.data_type import resolve_device
+from flatnav_tpu_torch.data_type import host_tensor, resolve_device
 from flatnav_tpu_torch.index.search import BeamResults, SearchResults, beam_search_core
 from flatnav_tpu_torch.ops.distances import (
     MetricType,
@@ -224,7 +224,7 @@ class ProductQuantizer:
             raise RuntimeError("ProductQuantizer must be trained first")
 
     def _tensor(self, x) -> torch.Tensor:
-        return torch.as_tensor(x).to(self.device)
+        return host_tensor(x).to(self.device)
 
     def encode(self, data) -> torch.Tensor:
         self._require_trained()

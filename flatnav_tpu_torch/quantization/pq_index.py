@@ -36,7 +36,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from flatnav_tpu_torch.data_type import resolve_device
+from flatnav_tpu_torch.data_type import host_tensor, resolve_device
 from flatnav_tpu_torch.index.build import (
     _MIN_WAVE,
     _back_edge_core,
@@ -256,7 +256,7 @@ class PQIndex:
         if n == 0:
             return
         centroids = self.pq.codebook.centroids
-        data_dev = torch.from_numpy(np.ascontiguousarray(data)).to(dev)
+        data_dev = host_tensor(data).to(dev)
         labels_dev = torch.from_numpy(labels).to(dev)
         committed = self.num_nodes
         pos = 0

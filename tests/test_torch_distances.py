@@ -133,3 +133,97 @@ def test_smallest_k_total_order():
     dist, idx = td.smallest_k(d, ids, 7)
     assert idx.tolist() == [[3, 6, 1, 2, 0, 5, 4]]
     assert dist.tolist() == [[-1.5, -1.5, 0.0, 0.0, 2.0, 2.0, float("inf")]]
+
+
+def test_fast_knn_ranks_by_bf16_keys():
+    # ROADMAP C.1: phase 1 takes the TPU's DEFAULT-precision form, bf16
+    # operands with float32 accumulation and float32 norms. Row 0 is nearer
+    # in float32 (distance 4e-6 against 9e-6), but its bf16-rounded key
+    # (1.002 rounds to 1.0) is larger, so a one-wide shortlist holds row 1.
+    data = torch.tensor([[1.002], [0.997]])
+    q = torch.tensor([[1.0]])
+    dist, ids = td.fast_knn(data, q, 1, td.MetricType.L2, rerank=1)
+    assert ids.tolist() == [[1]]
+    assert abs(dist.item() - 9e-6) < 1e-9  # the rerank's distance is exact
+    _, exact = td.brute_force_knn(data, q, 1)
+    assert exact.tolist() == [[0]]
+
+
+def test_bf16_dot_is_the_product_of_rounded_operands(rng):
+    x = rng.standard_normal((9, 37)).astype(np.float32)
+    y = rng.standard_normal((23, 37)).astype(np.float32)
+    xr = torch.from_numpy(x).to(torch.bfloat16).double()
+    yr = torch.from_numpy(y).to(torch.bfloat16).double()
+    got = td.bf16_dot(torch.from_numpy(x), torch.from_numpy(y))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), (xr @ yr.T).numpy(), rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("name,jm,tm", METRICS)
+def test_fast_knn_ids_agree_with_jax(rng, name, jm, tm):
+    # the port's bf16 ranking keys against JAX's float32 keys on the CPU:
+    # the exact rerank of a 32-wide shortlist hides the rounding in nearly
+    # every slot, and where the ids agree so do the exact distances
+    data = rng.standard_normal((4000, 48)).astype(np.float32)
+    q = rng.standard_normal((64, 48)).astype(np.float32)
+    jdist, jids = jd.fast_knn(jnp.asarray(data), jnp.asarray(q), 10, jm, tile_size=1024,
+                              recall_target=0.95)
+    tdist, tids = td.fast_knn(torch.from_numpy(data), torch.from_numpy(q), 10, tm,
+                              tile_size=1024, recall_target=0.95)
+    same = np.asarray(jids) == tids.numpy()
+    assert same.mean() >= 0.99
+    _close(tdist.numpy()[same], np.asarray(jdist)[same], "float32")
+
+
+def test_port_modules_have_the_jax_names_and_parameters():
+    # ROADMAP C.2: every public name defined in the JAX modules exists in
+    # the port's, and each function takes the same parameters in the same
+    # order. Not applicable: DataType.jax_dtype (the port's is torch_dtype).
+    import inspect
+
+    import flatnav_tpu.data_type as jdt
+    from flatnav_tpu_torch import data_type as tdt
+
+    for jmod, tmod in ((jd, td), (jdt, tdt)):
+        names = [n for n in dir(jmod) if not n.startswith("_")
+                 and getattr(getattr(jmod, n), "__module__", None) == jmod.__name__]
+        assert names and all(hasattr(tmod, n) for n in names), (jmod.__name__, names)
+        for n in names:
+            fn = getattr(jmod, n)
+            if callable(fn) and not isinstance(fn, type):
+                assert (list(inspect.signature(fn).parameters)
+                        == list(inspect.signature(getattr(tmod, n)).parameters)), n
+    props = {n for n, v in vars(jdt.DataType).items() if isinstance(v, property)}
+    assert props - {"jax_dtype"} <= {n for n, v in vars(tdt.DataType).items()
+                                     if isinstance(v, property)}
+
+
+@pytest.mark.parametrize("name", ["uint8", "int8", "float16", "bfloat16", "float32"])
+def test_numpy_dtype_matches_jax(name):
+    from flatnav_tpu.data_type import DataType as JaxType
+    from flatnav_tpu_torch.data_type import DataType, from_numpy, to_numpy
+
+    port = DataType(name).numpy_dtype
+    if name == "bfloat16":
+        # numpy has no bfloat16: the port's host form is the uint16 bit view
+        x = torch.tensor([1.5, -2.25], dtype=torch.bfloat16)
+        assert port == np.uint16 and to_numpy(x).dtype == port
+        assert torch.equal(from_numpy(to_numpy(x), torch.bfloat16), x)
+        assert np.asarray(jnp.asarray([1.5, -2.25], JaxType(name).numpy_dtype)).view(np.uint16).tolist() \
+            == to_numpy(x).tolist()
+    else:
+        assert port == JaxType(name).numpy_dtype
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.int8])
+def test_squared_norms_of_8bit_rows_in_chunks(rng, monkeypatch, dtype):
+    # integer tables are widened a chunk of rows at a time; the sums are exact
+    x = rng.integers(np.iinfo(dtype).min, np.iinfo(dtype).max + 1, (1000, 37)).astype(dtype)
+    want = (x.astype(np.int64) ** 2).sum(-1).astype(np.float32)
+    monkeypatch.setattr(td, "_NORM_ROWS", 128)
+    got = td.squared_norms(torch.from_numpy(x))
+    assert got.dtype == torch.float32 and np.array_equal(got.numpy(), want)
+    got3 = td.squared_norms(torch.from_numpy(x.reshape(10, 100, 37)))
+    assert np.array_equal(got3.numpy(), want.reshape(10, 100))
+    jw = np.asarray(jd.squared_norms(jnp.asarray(x)))
+    assert np.array_equal(got.numpy(), jw)

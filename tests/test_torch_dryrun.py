@@ -67,3 +67,26 @@ def test_dryrun_on_three_ranks_pads_the_shards():
     out = dryrun_multichip(3, device="cpu", backend="gloo", timeout=300)
     assert out["mesh"] == (1, 3)
     assert out["big_shard_rows"] == -(-(3072 + 4096) // 3)
+
+
+def test_run_meshes_serves_two_meshes_and_the_dry_run_in_one_start(four):
+    # the smoke's one gloo start: (1, 4) and (2, 2) cases, then the dry run,
+    # each equal to what its own start gives
+    import torch
+
+    from flatnav_tpu_torch.ops import brute_force_knn
+    from flatnav_tpu_torch.parallel import run_ranks
+    from flatnav_tpu_torch.parallel.dryrun import run_meshes
+
+    rng = np.random.default_rng(5)
+    vectors = rng.standard_normal((300, 16), dtype=np.float32)
+    queries = rng.standard_normal((12, 16), dtype=np.float32)
+    case = {"op": "exact", "args": {"vectors": vectors, "num_nodes": 300, "queries": queries, "k": 5}}
+    runs = [(1, 4, [case]), (2, 2, [case, case])]
+    out = run_ranks(run_meshes, 4, backend="gloo", device="cpu", timeout=300,
+                    args=(runs, "cpu", True))
+    _, want = brute_force_knn(torch.from_numpy(vectors), torch.from_numpy(queries), 5)
+    assert [len(r) for r in out[:2]] == [1, 2]
+    for res in (*out[0], *out[1]):
+        assert np.array_equal(res["ids"], want.numpy()) and res["launches"].shape == (4, 2)
+    assert out[2]["mesh"] == four["mesh"] and np.array_equal(out[2]["exact_ids"], four["exact_ids"])

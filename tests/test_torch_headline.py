@@ -107,3 +107,18 @@ def test_headline_other_tables(data, dtype, tmp_path, capsys):
     assert out["vs_baseline"] is None and out["value"] > 0
     assert np.load(tmp_path / "q.npy").shape == (64, 16)
     assert torch.cuda.is_available() or out["device"] == "cpu"
+
+
+def test_headline_counts_only_its_own_launches(tmp_path, capsys, monkeypatch):
+    """A caller in the same process may have launched kernels before `main`:
+    the line counts from `main`'s start, not from the process's."""
+    from flatnav_tpu_torch.ops.fused_scan import scan_buckets
+    from flatnav_tpu_torch.ops.gather_distance import gather_distances
+
+    monkeypatch.setattr(scan_buckets, "launches", 7)
+    monkeypatch.setattr(gather_distances, "launches", 11)
+    headline.main(["--device", "cpu", "--n", "1000", "--dim", "16", "--num-queries", "64",
+                   "--batch", "64", "--m", "8", "--index", str(tmp_path / "ix.npz"),
+                   "--queries-file", str(tmp_path / "q.npy")])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["kernel_launches"] == {"scan_buckets": 0, "gather_distances": 0}

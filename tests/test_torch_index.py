@@ -268,3 +268,73 @@ def test_unported_members_raise(method, tmp_path):
     assert ix.num_nodes == (5 if method == "reorder" else 6)
     with open(flatnav_tpu_torch.index.api.__file__) as f:
         assert "NotImplementedError" not in f.read()
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.uint8])
+def test_add_and_search_take_read_only_arrays(tmp_path, monkeypatch, dtype):
+    # ROADMAP C.3: a read-only array (a memory-mapped file, say) is copied,
+    # not handed to torch.from_numpy, which warns that it is not writable
+    # (once a process, so the spy below catches every such call)
+    import warnings
+
+    from_numpy = torch.from_numpy
+
+    def writable_only(a):
+        assert a.flags.writeable, "torch.from_numpy got a read-only array"
+        return from_numpy(a)
+
+    monkeypatch.setattr(torch, "from_numpy", writable_only)
+    rng = np.random.default_rng(3)
+    path = tmp_path / "data.npy"
+    np.save(path, (rng.standard_normal((300, 8)) * 40 + 100).clip(0, 255).astype(dtype))
+    data = np.load(path, mmap_mode="r")
+    assert not data.flags.writeable
+    ix = flatnav_tpu_torch.index.create("l2", dim=8, dataset_size=600, max_edges_per_node=8,
+                                        index_data_type=DataType(np.dtype(dtype).name), device="cpu")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        ix.add(data, ef_construction=32)
+        ix.allocate_nodes(data, labels=np.arange(300, 600, dtype=np.int32))
+        _, labels = ix.search(data[:5], K=1, ef_search=32)
+        ix.search_exact(data[:5], K=1)
+    assert ix.num_nodes == 600 and labels[:, 0].tolist() == list(range(5))
+
+
+def test_prune_counts_float64_for_8bit_rows():
+    # ROADMAP C.4: the prune promotes 8-bit candidate rows to float64, so the
+    # [W, C, C] product's 1 GiB rule counts 8 bytes an element for them
+    from flatnav_tpu_torch.index.build import _precomputes, _prune_itemsize
+
+    assert _prune_itemsize(torch.uint8) == _prune_itemsize(torch.int8) == 8
+    assert _prune_itemsize(torch.float32) == _prune_itemsize(torch.bfloat16) == 4
+    c = 256
+    w = (1 << 30) // (c * c * 4)  # exactly 1 GiB at 4 bytes an element
+    assert _precomputes(w, c, 4) and not _precomputes(w, c, 8)
+    assert _precomputes(w // 2, c, 8)
+
+
+def test_wave_guard_counts_float64_for_8bit_rows(monkeypatch):
+    # ROADMAP C.4: _safe_wave_size charges the prune's candidate rows at the
+    # element size it allocates; with a fixed card size an 8-bit build gets
+    # a narrower wave than a float32 one where that term decides
+    from flatnav_tpu_torch.index import build as build_mod
+
+    monkeypatch.setattr(build_mod, "_device_mem_limit", lambda device: 6 << 30)
+    kw = dict(ef_construction=200, m=32, d=960, expand_factor=32, intra_candidates=32,
+              table_bytes=0, device="cuda")
+    w4 = build_mod._safe_wave_size(8192, **kw, prune_itemsize=4)
+    w8 = build_mod._safe_wave_size(8192, **kw, prune_itemsize=8)
+    assert w8 < w4
+    # add_batch passes the table's own element size
+    seen = {}
+
+    def spy(max_wave, **k):
+        seen.update(k)
+        return max_wave
+
+    monkeypatch.setattr(build_mod, "_safe_wave_size", spy)
+    for dtype, size in ((torch.uint8, 8), (torch.float32, 4)):
+        g = make_empty_graph(64, 4, 4, dtype=dtype, device="cpu")
+        add_batch(g, np.ones((8, 4), np.float32).astype(np.dtype(str(dtype)[6:])), np.arange(8),
+                  ef_construction=8, metric=MetricType.L2)
+        assert seen["prune_itemsize"] == size

@@ -507,3 +507,29 @@ def test_sharded_paths_on_card_equal_single_device(cuda, backend, shape):
                     metric=MetricType.L2)
     assert np.array_equal(built["links"], to_numpy(ref.links)[: built["links"].shape[0]])
     assert (search["launches"][:, 1] > 0).all() and (fused["launches"][:, 0] > 0).all()
+
+
+def test_fast_knn_ranks_by_bf16_keys_on_card(cuda, rng):
+    # fast_knn's phase 1 takes the TPU's DEFAULT-precision form: one bf16
+    # product with a float32 result; its rerank stays exact
+    from flatnav_tpu_torch.ops.distances import bf16_dot, fast_knn
+
+    data = torch.tensor([[1.002], [0.997]], device=cuda)
+    q = torch.tensor([[1.0]], device=cuda)
+    dist, ids = fast_knn(data, q, 1, MetricType.L2, rerank=1)
+    assert ids.tolist() == [[1]]  # row 0 is nearer, but its bf16 key is larger
+    assert abs(dist.item() - float((data[1] - q[0]).pow(2).sum())) == 0.0
+
+    x = rng.standard_normal((64, 96), dtype=np.float32)
+    y = rng.standard_normal((5000, 96), dtype=np.float32)
+    xr, yr = (torch.from_numpy(a).to(torch.bfloat16).double() for a in (x, y))
+    keys = bf16_dot(torch.from_numpy(x).to(cuda), torch.from_numpy(y).to(cuda))
+    assert keys.dtype == torch.float32
+    np.testing.assert_allclose(keys.cpu().numpy(), (xr @ yr.T).numpy(), rtol=1e-5, atol=1e-4)
+
+    # the card's keys rank as the CPU's rounded-operand keys do
+    gd, gi = fast_knn(torch.from_numpy(y).to(cuda), torch.from_numpy(x).to(cuda), 10, tile_size=1024)
+    cd, ci = fast_knn(torch.from_numpy(y), torch.from_numpy(x), 10, tile_size=1024)
+    same = gi.cpu().numpy() == ci.numpy()
+    assert same.mean() >= 0.99
+    np.testing.assert_allclose(gd.cpu().numpy()[same], cd.numpy()[same], rtol=1e-5, atol=1e-5)
