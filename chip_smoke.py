@@ -14,10 +14,13 @@ Phases, in order; any failure raises and the script exits nonzero:
      L2/IP, f32/bf16/f16 tables, ragged B x C; K1 scan_buckets bit-equal on
      uint8/int8 tables and within 1e-5 of the key magnitude on bf16 tables
      (ids equal wherever a bucket's best two keys differ by more), at
-     d in {37, 64, 128, 256} and bf16 also at d in {100, 960}, L2/IP, N not
-     a multiple of the tile and n_valid < N; bf16 at d in {64, 128, 256}
-     takes K1's "wgmma" variant, the rest its "mma" variant (the wrapper
-     picks by shape).
+     d in {37, 64, 128, 256} with bf16 queries, 8-bit queries of 8-bit
+     tables at d in {64, 128, 256}, and bf16 also at d in {100, 960} as
+     fused_knn hands them over (d=100 padded to 104), L2/IP, N not a
+     multiple of the tile and n_valid < N; each case must take the variant
+     the wrapper's rule names: "wgmma" for bf16 at 64 <= d <= 384 (d=104
+     included), "wgmma_wide" at d=960, "wgmma_int8" for 8-bit queries of
+     8-bit rows, "mma" for the rest.
   3. the main path at full width, the README configuration: clustered data
      (seed 0x5EED), N=100,000, d=128 float32, L2, M=32, ef_construction=100,
      4,096 queries, K=10: create -> add -> search(ef_search=192) ->
@@ -100,8 +103,10 @@ Phases, in order; any failure raises and the script exits nonzero:
      BigANN-class 10M runner at 100k uint8 rows, the 100M runner at 1M rows
      with its scan engines only; 2,048 queries each. Counts zeroed before each
      run and read after it; recalls held to the floors above phase_northstar;
-     K1's "mma" variant (d=100, d=960, uint8 d=128) timed and held against
-     its plain version at each run's shapes, K2 at the d=100 / d=960 hops.
+     K1 must take "wgmma" at d=100, "wgmma_wide" at d=960 and "wgmma_int8"
+     on both uint8 runs, and never "mma"; each timed and held against its
+     plain version at its run's shapes, beside a bf16 torch.matmul (and
+     torch._int_mm on the uint8 tables); K2 at the d=100 / d=960 hops.
 
 The line before the last is one JSON object with each kernel's launches,
 error against its plain version, times and bound; the last line is
@@ -220,7 +225,7 @@ def phase_kernels(rng):
 
     from flatnav_tpu_torch.ops import MetricType
     from flatnav_tpu_torch.ops.distances import squared_norms
-    from flatnav_tpu_torch.ops.fused_scan import scan_buckets
+    from flatnav_tpu_torch.ops.fused_scan import scan_buckets, scan_operands
 
     dev = torch.device("cuda")
     k2_err = 0.0
@@ -237,11 +242,16 @@ def phase_kernels(rng):
 
     k1_err = 0.0
     t, L = 2048, 16
-    cases = [(d, dtype) for d in (37, 64, 128, 256)
-             for dtype in (torch.uint8, torch.int8, torch.bfloat16)]
-    # the north-star widths: angular's d=100 and gist's d=960, both "mma"
-    cases += [(d, torch.bfloat16) for d in (100, 960)]
-    for d, dtype in cases:
+    # (d, row type, 8-bit queries?, the variant the wrapper must pick)
+    cases = [(d, dtype, False, "wgmma" if dtype == torch.bfloat16 and d >= 64 else "mma")
+             for d in (37, 64, 128, 256) for dtype in (torch.uint8, torch.int8, torch.bfloat16)]
+    # 8-bit queries of an 8-bit table (the BigANN runners'), and the
+    # north-star widths as fused_knn hands them over: angular's d=100 padded
+    # to 104, gist's d=960
+    cases += [(d, dtype, True, "wgmma_int8") for d in (64, 128, 256)
+              for dtype in (torch.uint8, torch.int8)]
+    cases += [(100, torch.bfloat16, False, "wgmma"), (960, torch.bfloat16, False, "wgmma_wide")]
+    for d, dtype, q8, want in cases:
         for metric in (MetricType.L2, MetricType.IP):
             n, nlim, qc = 10000, 9000, 100  # n not a multiple of t
             if dtype == torch.bfloat16:
@@ -250,11 +260,15 @@ def phase_kernels(rng):
             else:
                 lo, hi = (0, 256) if dtype == torch.uint8 else (-128, 128)
                 rows = torch.from_numpy(rng.integers(lo, hi, (n, d)).astype("int16")).to(dev, dtype)
-                q = torch.from_numpy(rng.integers(lo, hi, (qc, d)).astype("int16")).to(dev).to(torch.bfloat16)
+                q = torch.from_numpy(rng.integers(lo, hi, (qc, d)).astype("int16")).to(dev)
+                q = q.to(dtype if q8 else torch.bfloat16)
             pen = (squared_norms(rows) if metric == MetricType.L2
                    else torch.zeros(n, device=dev))
+            rows, q = scan_operands(rows, q) if dtype == torch.bfloat16 else (rows, q)
+            before = scan_buckets.variants[want]
             k1_err = max(k1_err, k1_against_plain(
-                q, rows, pen, nlim, t, L, f"d={d} {metric.value} {dtype}"))
+                q, rows, pen, nlim, t, L, f"d={d} {metric.value} {dtype} q {q.dtype}"))
+            check(scan_buckets.variants[want] == before + 1, f"K1 d={d} {dtype} took {want}")
     print(f"K1 scan_buckets: 8-bit bit-equal, bf16 max abs err {k1_err:g} on {2 * len(cases)} "
           f"cases; launches by variant {scan_buckets.variants}")
     return k2_err, k1_err
@@ -340,7 +354,8 @@ def phase_main_path():
         print(f"  {name}: recall@10 {r['recall']:.4f}  qps {r['qps']:.1f}  ({r['s']:.3f} s)")
     print(f"  launches on the main path: {launches}")
     check(launches["gather_distances"] > 0 and launches["scan_buckets"] > 0, "kernel launches")
-    check(launches["scan_buckets variants"]["mma"] == 0, "the main path's K1 takes the wgmma variant")
+    check(launches["scan_buckets variants"]["wgmma"] == launches["scan_buckets"],
+          "the main path's K1 takes the wgmma variant alone")
     check(out["exact"]["recall"] == 1.0, "exact recall == 1.0")
     check(out["fused"]["recall"] >= 0.98, "fused recall >= 0.98")
     check(out["graph"]["recall"] >= 0.90, "graph recall >= 0.90")
@@ -453,8 +468,8 @@ def phase_scan_1m():
     stage_ms = pfs.time_stages(fns, 2.0 * b * n * d, reps=2)
     torch.cuda.synchronize()
     stage_launches = scan_buckets.launches
-    check(stage_launches > 0 and scan_buckets.variants["mma"] == 0,
-          "the stage profiler launched K1's wgmma variant")
+    check(stage_launches > 0 and scan_buckets.variants["wgmma"] == stage_launches,
+          "the stage profiler launched K1's wgmma variant alone")
     k1p = {"ms": stage_ms["phaseA"], "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
            "library_ms": stage_ms["matmul"], "launches": stage_launches}
     return err, k1, k1p, {"data": data, "ds": ds, "q": q, "gt": gt}
@@ -1118,6 +1133,11 @@ NS_FLOORS = {
 }
 
 
+#: the K1 variant each north-star run must take, and no other
+NS_VARIANTS = {"angular": "wgmma", "gist": "wgmma_wide", "bigann 10M": "wgmma_int8",
+               "bigann 100M": "wgmma_int8"}
+
+
 def phase_northstar():
     """Phase 11: the north-star runners through `main(argv)` at a small
     scale, in a scratch directory that is removed after: angular (d=100,
@@ -1125,8 +1145,9 @@ def phase_northstar():
     point, the BigANN-class 10M runner at NS_ROWS uint8 rows (graph, scans,
     PQ at 8 and 4 bits), the 100M runner at 1M rows with its scan engines.
     Kernel counts are zeroed before each run and read after it. Every
-    engine's recall is held to NS_FLOORS; K1 must launch its "mma" variant
-    in each run and K2 in the float graphs; the kernels alone at each run's
+    engine's recall is held to NS_FLOORS; K1 must launch the variant
+    NS_VARIANTS names and no other (never "mma") in each run, and K2 in the
+    float graphs; the kernels alone at each run's
     shapes come from the runners (`_northstar.k1_times` / `k2_times`: K1
     within the bf16 tolerance of its plain version, bit-equal on 8-bit rows,
     K2 bit-equal). -> {run: {"launches", "kernels", "seconds"}}."""
@@ -1197,14 +1218,17 @@ def phase_northstar():
             print(f"  graph point {res['graph_operating_point']}")
         for e, floor in floors.items():
             check(recalls[e] >= floor, f"north star {name}: {e} recall {recalls[e]} >= {floor}")
-        check(launches["scan_buckets variants"]["mma"] > 0, f"north star {name} launched K1's mma variant")
+        want = NS_VARIANTS[name]
+        variants = launches["scan_buckets variants"]
+        check(variants[want] > 0 and variants["mma"] == 0 and sum(variants.values()) == variants[want],
+              f"north star {name} launched K1's {want} variant alone: {variants}")
         if name in ("angular", "gist"):
             check(launches["gather_distances"] > 0, f"north star {name} launched K2")
         for kname, k in (run["kernels"] or {}).items():
             if k:
                 print(f"  {kname} alone: " + json.dumps(k))
         k1 = (run["kernels"] or {}).get("scan_buckets")
-        check(k1 is not None and k1["variant"] == "mma", f"north star {name}: K1 timed on mma")
+        check(k1 is not None and k1["variant"] == want, f"north star {name}: K1 timed on {want}")
         # 8-bit rows were held bit-equal inside the runner; bf16 ones here
         check(k1["max_abs_err"] <= 1e-5 * k1["key_max"],
               f"north star {name}: K1 within 1e-5 of its largest key of the plain version")
@@ -1277,20 +1301,28 @@ def main() -> int:
         mark("6b pq scan")
         north = phase_northstar()
         mark("11 north star")
-        k1_mma = north["gist"]["kernels"]["scan_buckets"]
-        kernels.append({
-            "name": "scan_buckets mma", "route": "cuda", "variant": "mma",
-            "source": "flatnav_tpu_torch/csrc/fused_scan.cu",
-            "replaces": "flatnav_tpu/ops/fused_scan.py:159",
-            "launches": sum(r["launches"]["scan_buckets variants"]["mma"] for r in north.values()),
-            "launches_by_run": {r: v["launches"]["scan_buckets variants"]["mma"]
-                                for r, v in north.items()},
-            "max_abs_err": max(v["kernels"]["scan_buckets"]["max_abs_err"] for v in north.values()),
-            **{x: k1_mma[x] for x in ("ms", "plain_ms", "bound_ms", "bound_by")},
-            "library_ms": k1_mma["matmul_bf16_ms"],
-            "timed_at": {x: k1_mma[x] for x in ("qc", "n", "d", "rows", "L", "T")},
-            "shapes": {r: v["kernels"]["scan_buckets"] for r, v in north.items()},
-        })
+        for variant, run_names in (("wgmma_wide", ("gist",)),
+                                   ("wgmma_int8", ("bigann 10M", "bigann 100M"))):
+            timed_in = north[run_names[-1]]["kernels"]["scan_buckets"]
+            kernels.append({
+                "name": f"scan_buckets {variant}", "route": "cuda", "variant": variant,
+                "source": "flatnav_tpu_torch/csrc/fused_scan.cu",
+                "replaces": "flatnav_tpu/ops/fused_scan.py:159",
+                "launches": sum(north[r]["launches"]["scan_buckets variants"][variant]
+                                for r in run_names),
+                "launches_by_run": {r: north[r]["launches"]["scan_buckets variants"][variant]
+                                    for r in run_names},
+                "max_abs_err": max(north[r]["kernels"]["scan_buckets"]["max_abs_err"]
+                                   for r in run_names),
+                **{x: timed_in[x] for x in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                "library_ms": timed_in["int_mm_ms"] or timed_in["matmul_bf16_ms"],
+                "library": "torch._int_mm" if timed_in["int_mm_ms"] else "torch.matmul bf16",
+                "matmul_bf16_ms": timed_in["matmul_bf16_ms"],
+                "timed_at": {x: timed_in[x] for x in ("qc", "n", "d", "rows", "queries", "L", "T")},
+                "shapes": {r: north[r]["kernels"]["scan_buckets"] for r in run_names},
+            })
+        k1["launches_northstar_angular"] = north["angular"]["launches"]["scan_buckets variants"]["wgmma"]
+        k1["northstar_angular"] = north["angular"]["kernels"]["scan_buckets"]
         k2["launches_northstar"] = {r: v["launches"]["gather_distances"] for r, v in north.items()}
         k2["northstar_hops"] = {r: v["kernels"]["gather_distances"] for r, v in north.items()
                                 if v["kernels"].get("gather_distances")}

@@ -25,7 +25,8 @@
     scan options.
   * `k1_times` / `k2_times`: a kernel alone at the shapes a runner gives it,
     beside its plain version, its bound and (K1) a bf16 `torch.matmul` of
-    the same product, by CUDA events (`measure.timed`); None on the CPU.
+    the same product (and `torch._int_mm` on 8-bit tables), by CUDA events
+    (`measure.timed`); None on the CPU.
   * `reduced`: what a run cut against the source's configuration, for the
     results file's `reduced` key.
   * `write_results`: the results file, under `bench/results/` unless the
@@ -260,26 +261,30 @@ def encode_chunks(pq, rows, dev, chunk: int, pack: bool = False) -> np.ndarray:
 
 def k1_times(dataset: torch.Tensor, queries: torch.Tensor, metric: MetricType,
              n_valid: int | None = None) -> dict | None:
-    """K1 (`scan_buckets`) alone at the shapes `fused_knn` gives it for these
-    arguments (its first query chunk), beside its plain version, its bound
-    and a bf16 `torch.matmul` of the same product (in row chunks of at most
-    2 GiB of output). 8-bit tables must be bit-equal to the plain version;
-    `key_max`, the largest finite key, scales the tolerance of bf16 ones.
-    These launches are not counted on the runner's path. None on the CPU."""
+    """K1 (`scan_buckets`) alone at the shapes and operands `fused_knn` gives
+    it for these arguments (its first query chunk), with the variant it
+    takes, beside its plain version, its bound and a bf16 `torch.matmul` of
+    the same product (in row chunks of at most 2 GiB of output); for 8-bit
+    tables also `torch._int_mm` (s8 x s8 -> s32; uint8 operands shifted by
+    128, which is the same work). 8-bit tables must be bit-equal to the
+    plain version; `key_max`, the largest finite key, scales the tolerance
+    of bf16 ones. These launches are not counted on the runner's path. None
+    on the CPU."""
     if not dataset.is_cuda:
         return None
     saved = launches()
     n, d = dataset.shape
-    native = dataset.dtype in (torch.uint8, torch.int8) and d <= fs._NATIVE_INT_MAX_D
-    rows = dataset if native else dataset.to(torch.bfloat16)
+    rows, q_all = fs.scan_operands(dataset, queries)
     L, t, _, qc = fs._pick_shapes(n, queries.shape[0], d, rows.element_size(), fs._TILE,
                                   fs._QB, None, fs._SUMMARY_BYTES)
-    pen = (squared_norms(rows) if metric == MetricType.L2
+    pen = (squared_norms(rows[:, :d]) if metric == MetricType.L2
            else torch.zeros(n, dtype=torch.float32, device=rows.device))
-    q_bf = queries[:qc].to(torch.bfloat16)
+    q = q_all[:qc].contiguous()
+    del q_all
     nlim = min(n if n_valid is None else int(n_valid), n)
-    kmin, kid = fs.scan_buckets(q_bf, rows, pen, nlim, t, L)
-    pmin, pid = fs.scan_buckets_plain(q_bf, rows, pen, nlim, t, L)
+    native = rows.dtype in (torch.uint8, torch.int8)
+    kmin, kid = fs.scan_buckets(q, rows, pen, nlim, t, L)
+    pmin, pid = fs.scan_buckets_plain(q, rows, pen, nlim, t, L)
     fin = torch.isfinite(pmin)
     if not torch.equal(fin, torch.isfinite(kmin)):
         raise RuntimeError("K1 and its plain version disagree on which buckets are empty")
@@ -288,8 +293,9 @@ def k1_times(dataset: torch.Tensor, queries: torch.Tensor, metric: MetricType,
     if native and not (torch.equal(kmin, pmin) and torch.equal(kid, pid)):
         raise RuntimeError("K1 is not bit-equal to its plain version on 8-bit rows")
     del kmin, kid, pmin, pid
-    ms = timed(lambda: fs.scan_buckets(q_bf, rows, pen, nlim, t, L), reps=3, warmup=1)
-    plain_ms = timed(lambda: fs.scan_buckets_plain(q_bf, rows, pen, nlim, t, L), reps=1, warmup=0)
+    ms = timed(lambda: fs.scan_buckets(q, rows, pen, nlim, t, L), reps=3, warmup=1)
+    plain_ms = timed(lambda: fs.scan_buckets_plain(q, rows, pen, nlim, t, L), reps=1, warmup=0)
+    q_bf = q.to(torch.bfloat16)
     rows_bf = rows.to(torch.bfloat16)
     step = max(128, (2 << 30) // (2 * qc))
 
@@ -298,13 +304,41 @@ def k1_times(dataset: torch.Tensor, queries: torch.Tensor, metric: MetricType,
             torch.matmul(q_bf, rows_bf[lo : lo + step].T)
 
     matmul_ms = timed(matmul, reps=3, warmup=1)
+    del rows_bf
+    int_mm_ms = None
+    if native and q.dtype == rows.dtype:
+        q8, rows8 = int8_operands(q, rows)
+        step8 = max(128, (2 << 30) // (4 * qc) // 128 * 128)
+
+        def int_mm():
+            for lo in range(0, rows8.shape[0], step8):
+                torch._int_mm(q8, rows8[lo : lo + step8].T)
+
+        int_mm_ms = timed(int_mm, reps=3, warmup=1)
+        del rows8
     nb = -(-n // t) * (t // L)
-    bound, by = scan_bound(qc, n, d, nb, row_bytes=rows.element_size())
+    bound, by = scan_bound(qc, n, d, nb, row_bytes=rows.element_size(),
+                           q_bytes=q.element_size())
     restore_launches(saved)
-    return {"variant": fs.scan_variant(q_bf, rows, pen, t, L), "qc": qc, "n": n, "d": d,
-            "rows": str(rows.dtype).removeprefix("torch."), "L": L, "T": t,
-            "ms": ms, "plain_ms": plain_ms, "matmul_bf16_ms": matmul_ms,
+    return {"variant": fs.scan_variant(q, rows, pen, t, L), "qc": qc, "n": n, "d": d,
+            "rows": str(rows.dtype).removeprefix("torch."),
+            "queries": str(q.dtype).removeprefix("torch."), "L": L, "T": t,
+            "ms": ms, "plain_ms": plain_ms, "matmul_bf16_ms": matmul_ms, "int_mm_ms": int_mm_ms,
             "bound_ms": bound, "bound_by": by, "max_abs_err": err, "key_max": key_max}
+
+
+def int8_operands(q: torch.Tensor, rows: torch.Tensor):
+    """int8 copies of 8-bit queries and rows for `torch._int_mm`: uint8
+    values shifted by 128 (x ^ 0x80 read as int8 is x - 128), rows padded
+    with zero rows to a multiple of 8 (its column rule)."""
+    n8 = -(-rows.shape[0] // 8) * 8
+    rows8 = torch.zeros((n8, rows.shape[1]), dtype=torch.int8, device=rows.device)
+    if rows.dtype == torch.uint8:
+        for lo in range(0, rows.shape[0], 1 << 24):
+            rows8[lo : lo + (1 << 24)] = (rows[lo : lo + (1 << 24)] ^ 128).view(torch.int8)
+        return (q ^ 128).view(torch.int8), rows8
+    rows8[: rows.shape[0]] = rows
+    return q, rows8
 
 
 def restore_launches(saved: dict) -> None:

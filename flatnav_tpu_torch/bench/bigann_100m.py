@@ -13,8 +13,9 @@ scale, experiments/Makefile:8-23). Engines, against exact ground truth:
            (float64 on the card)
   fused    `fused_knn` called bare over `--b` queries a call: it picks its
            own shapes and chunks the queries to bound its [B, N/L] phase-A
-           summary (`ops/fused_scan._pick_shapes`); K1 runs its "mma" variant
-           on the unpromoted uint8 rows, whose keys are exact at d=128;
+           summary (`ops/fused_scan._pick_shapes`); K1 runs its "wgmma_int8"
+           variant on the unpromoted uint8 rows and uint8 queries, whose
+           keys are exact at d=128;
            fusednr without the exact rerank
   pq       `pq_scan_knn` over lane-packed codes (`pack_codes_lanes`), trained
            on a 500k-row stride sample, with a raw-vector rerank from the

@@ -12,9 +12,9 @@ quantisation. Every engine has exact integer distances:
 
   exact    `brute_force_knn`: exact int32 products (float64 on the card)
   fast     `fast_knn`, tile 262144, rerank 32: exact int32 ranking keys
-  fused    `fused_knn`, rerank 32, called bare over all queries: K1 "mma" on
-           the unpromoted uint8 rows (exact keys at d=128); fusednr without
-           the exact rerank
+  fused    `fused_knn`, rerank 32, called bare over all queries: K1
+           "wgmma_int8" on the unpromoted uint8 rows and uint8 queries
+           (exact keys at d=128); fusednr without the exact rerank
   graph    batched beam search over the build's links; its hop scores in
            exact int32 (K2 serves float tables only). `EF_GRID` x `E_GRID`
            to the first point at the 0.95 target, else the best point timed

@@ -16,16 +16,23 @@ mean of `--reps` calls after one warm-up call) in the order base, new, ...,
 new, base, so a drift of the card's clocks shows as a difference between the
 two readings of one kernel.
 
-Cases, at the main path's shapes and the 1M scan's:
+Cases, at the main path's shapes, the 1M scan's and the north-star shapes:
   K2 hop       B=1024, C=512, d=128 float32 over 100,000 rows (random ids)
   K2 wave      B=8192, C=1024, d=128 float32 (a build wave)
   K2 bf16 hop  the hop on a bfloat16 table
   K2 d=4096    B=1024, C=512, d=4096 float32 over 20,000 rows
-  K1 1M        4096 queries x 1,000,000 rows, d=128 bf16, T=2048, L=16
-  K1 path      1024 queries x 108,192 rows (100,000 valid), T=2048, L=16
+  K1 (`--k1`, `K1_CASES`): 1M (4096 queries x 1,000,000 rows, d=128 bf16,
+  T=2048, L=16), path (1024 x 108,192 rows, 100,000 valid), gist (d=960),
+  angular (d=100, padded to 104 for this checkout), u8-10M (uint8 rows and
+  queries, 10,000,000 rows, T=32768, L=256) and u8-100M (512 queries).
+  An entry without a query type (the parent's) gets bf16 queries and
+  unpadded rows, as the parent's `fused_knn` gave it; one with `q_type`
+  gets this checkout's operands and variant, so a copy of this source
+  with a constant changed (e.g. `wide_scan::CS`) is timed against this one.
 Each line gives the bound (`measure.gather_bound` / `measure.scan_bound`)
-and, for K1, the time of torch.matmul bf16 on the same inputs. Needs a CUDA
-card; exits 2 without one.
+and, for K1, the plain version's time and the time of torch.matmul bf16
+(and torch._int_mm for 8-bit rows) on the same inputs. Needs a CUDA card;
+exits 2 without one.
 """
 
 from __future__ import annotations
@@ -44,7 +51,15 @@ import torch
 from flatnav_tpu_torch import _build
 from flatnav_tpu_torch.bench.measure import card, gather_bound, scan_bound, timed
 from flatnav_tpu_torch.ops.distances import squared_norms
-from flatnav_tpu_torch.ops.fused_scan import VARIANTS, scan_buckets, scan_variant
+from flatnav_tpu_torch.bench._northstar import int8_operands
+from flatnav_tpu_torch.ops.fused_scan import (
+    _ROW_TYPES,
+    VARIANTS,
+    scan_buckets,
+    scan_buckets_plain,
+    scan_operands,
+    scan_variant,
+)
 from flatnav_tpu_torch.ops.gather_distance import (
     _VEC_TYPES,
     gather_distances,
@@ -150,36 +165,107 @@ def k2_cases(base: BaseEntry, rng, reps: int) -> None:
                   f"{gathered / (sum(ts) / len(ts) * 1e-3) / 1e12:.2f} TB/s")
 
 
-def k1_cases(base: BaseEntry, rng, reps: int) -> None:
-    d, t, L = 128, 2048, 16
-    for label, qc, n, nlim in (("K1 1M", 4096, 1_000_000, 1_000_000),
-                               ("K1 path", 1024, 108_192, 100_000)):
-        rows = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).cuda().to(torch.bfloat16)
-        q = torch.from_numpy(rng.standard_normal((qc, d), dtype=np.float32)).cuda().to(torch.bfloat16)
+#: K1 cases: label -> (queries, rows, valid rows, d, row type, T, L). The
+#: north-star shapes are the first query chunk `fused_knn` gives K1 there.
+K1_CASES = {
+    "1M": (4096, 1_000_000, 1_000_000, 128, torch.bfloat16, 2048, 16),
+    "path": (1024, 108_192, 100_000, 128, torch.bfloat16, 2048, 16),
+    "gist": (4096, 1_000_000, 1_000_000, 960, torch.bfloat16, 2048, 16),
+    "angular": (4096, 1_000_000, 1_000_000, 100, torch.bfloat16, 2048, 16),
+    "u8-10M": (4096, 10_000_000, 10_000_000, 128, torch.uint8, 32768, 256),
+    "u8-100M": (512, 100_000_000, 100_000_000, 128, torch.uint8, 32768, 256),
+}
+
+
+def _k1_inputs(qc, n, d, dtype, seed=0):
+    """Rows and queries made on the card from a seed: normal bf16, or
+    uniform uint8."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if dtype == torch.uint8:
+        rows = torch.randint(0, 256, (n, d), dtype=torch.uint8, device="cuda", generator=g)
+        q = torch.randint(0, 256, (qc, d), dtype=torch.uint8, device="cuda", generator=g)
+        return rows, q
+    rows = torch.randn((n, d), device="cuda", generator=g).to(torch.bfloat16)
+    q = torch.randn((qc, d), device="cuda", generator=g).to(torch.bfloat16)
+    return rows, q
+
+
+def k1_cases(base: BaseEntry, reps: int, names: list[str]) -> None:
+    """Each case: the baseline entry on what the parent's `fused_knn` gave it
+    (unpadded bf16 rows, bf16 queries, its "wgmma" where this checkout takes
+    "wgmma", else its "mma"; a baseline whose entry takes `q_type` gets this
+    checkout's operands and variant instead), this checkout's `scan_buckets` on what
+    `fused_knn` gives it now (`scan_operands`), the plain version once, and
+    the library yardsticks: a bf16 `torch.matmul` of the same product and,
+    for 8-bit rows, `torch._int_mm` (row chunks of at most 2 GiB output)."""
+    for name in names:
+        qc, n, nlim, d, dtype, t, L = K1_CASES[name]
+        rows, q = _k1_inputs(qc, n, d, dtype)
+        rows_new, q_new = scan_operands(rows, q)
+        q_bf = q.to(torch.bfloat16)
         pen = squared_norms(rows)
         nb = -(-n // t) * (t // L)
-        variant = scan_variant(q, rows, pen, t, L)
+        variant = scan_variant(q_new, rows_new, pen, t, L)
+        if "q_type" in base.names:  # a baseline of this generation: the same operands
+            base_variant, bq, brows = variant, q_new, rows_new
+        else:
+            base_variant = "wgmma" if variant == "wgmma" and rows_new is rows else "mma"
+            bq, brows = q_bf, rows
         om = torch.empty((qc, nb), device="cuda")
         oi = torch.empty((qc, nb), dtype=torch.int32, device="cuda")
         fns = {
-            "base": lambda: base(q=q.data_ptr(), rows=rows.data_ptr(), row_type=0,
-                                 pen=pen.data_ptr(), qc=qc, n=n, d=d, nlim=nlim, t=t, L=L,
-                                 nb=nb, variant=VARIANTS[variant], out_min=om.data_ptr(),
-                                 out_id=oi.data_ptr(), stream=_stream()),
-            f"new {variant}": lambda: scan_buckets(q, rows, pen, nlim, t, L),
-            "torch.matmul": lambda: torch.matmul(q, rows.T),
+            f"base {base_variant}": lambda: base(
+                q=bq.data_ptr(), q_type=_ROW_TYPES[bq.dtype], rows=brows.data_ptr(),
+                row_type=_ROW_TYPES[brows.dtype], pen=pen.data_ptr(), qc=qc, n=n,
+                d=brows.shape[1], nlim=nlim, t=t, L=L, nb=nb, variant=VARIANTS[base_variant],
+                out_min=om.data_ptr(), out_id=oi.data_ptr(), stream=_stream()),
+            f"new {variant}": lambda: scan_buckets(q_new, rows_new, pen, nlim, t, L),
         }
         times = alternate(fns, reps)
-        new_min, new_id = scan_buckets(q, rows, pen, nlim, t, L)
+        new_min, new_id = scan_buckets(q_new, rows_new, pen, nlim, t, L)
         fin = torch.isfinite(om)
         err = float((new_min[fin] - om[fin]).abs().max())
         same = float((new_id == oi).float().mean())
-        print(f"  new {variant} against base: max abs diff {err:g}, ids equal {100 * same:.3f}%")
-        bound, by = scan_bound(qc, n, d, nb)
-        waves = (-(-qc // 128) * -(-n // t) * (t // L // 128)
-                 / torch.cuda.get_device_properties(0).multi_processor_count)
-        show(f"{label} {qc} x {n} (valid {nlim}) d={d} T={t} L={L}; wgmma grid = {waves:.2f} "
-             f"waves of one block per SM", times, bound, by)
+        exact = torch.equal(new_min, om) and torch.equal(new_id, oi)
+        print(f"  new {variant} against base: max abs diff {err:g}, ids equal "
+              f"{100 * same:.3f}%{' (bit-equal)' if exact else ''}")
+        if dtype != torch.bfloat16 and not exact:
+            raise RuntimeError(f"K1 {name}: 8-bit keys differ from the baseline's")
+        del new_min, new_id, om, oi
+        times["plain"] = [timed(lambda: scan_buckets_plain(q_new, rows_new, pen, nlim, t, L),
+                                reps=1, warmup=0)]
+        del rows_new
+        times["torch.matmul bf16"] = [_chunked_matmul_ms(q_bf, rows.to(torch.bfloat16), reps)]
+        if dtype != torch.bfloat16:
+            q8, rows8 = int8_operands(q, rows)
+            times["torch._int_mm"] = [_chunked_int_mm_ms(q8, rows8, reps)]
+            del rows8
+        bound, by = scan_bound(qc, n, d, nb, row_bytes=rows.element_size(),
+                               q_bytes=q_new.element_size())
+        show(f"K1 {name}: {qc} x {n} (valid {nlim}) d={d} {str(dtype)[6:]} T={t} L={L}",
+             times, bound, by)
+        del rows, q, q_bf, pen
+        torch.cuda.empty_cache()
+
+
+def _chunked_matmul_ms(q, rows, reps):
+    step = max(128, (2 << 30) // (2 * q.shape[0]))
+
+    def run():
+        for lo in range(0, rows.shape[0], step):
+            torch.matmul(q, rows[lo : lo + step].T)
+
+    return timed(run, reps, warmup=1)
+
+
+def _chunked_int_mm_ms(q8, rows8, reps):
+    step = max(128, (2 << 30) // (4 * q8.shape[0]) // 128 * 128)
+
+    def run():
+        for lo in range(0, rows8.shape[0], step):
+            torch._int_mm(q8, rows8[lo : lo + step].T)
+
+    return timed(run, reps, warmup=1)
 
 
 def main(argv=None) -> int:
@@ -187,6 +273,8 @@ def main(argv=None) -> int:
     ap.add_argument("--baseline", required=True, type=Path)
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--cases", default="k2,k1", help="comma-separated: k2, k1")
+    ap.add_argument("--k1", default=",".join(K1_CASES),
+                    help=f"comma-separated K1 cases: {', '.join(K1_CASES)}")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -199,7 +287,7 @@ def main(argv=None) -> int:
     if "k2" in cases:
         k2_cases(base["k2"], rng, args.reps)
     if "k1" in cases:
-        k1_cases(base["k1"], rng, args.reps)
+        k1_cases(base["k1"], args.reps, args.k1.split(","))
     return 0
 
 

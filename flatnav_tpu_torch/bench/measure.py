@@ -19,6 +19,7 @@ import torch
 #: H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+INT8_OP_PER_S = 1979e12
 F32_FLOP_PER_S = 67e12
 
 
@@ -61,13 +62,16 @@ def gather_bound(vectors: torch.Tensor, ids: torch.Tensor, queries: torch.Tensor
     return _bound(nbytes, 3 * b * c * d, F32_FLOP_PER_S)
 
 
-def scan_bound(qc: int, n: int, d: int, nb: int, row_bytes: int = 2):
-    """-> (ms, "bytes" or "operations") of K1 over qc bf16 queries and an
-    [n, d] table of `row_bytes`-byte rows: the queries, table and
-    penalties read once, the [qc, nb] f32 + i32 summary written once;
-    2 qc n d operations at the bf16 peak."""
-    nbytes = qc * d * 2 + n * d * row_bytes + n * 4 + qc * nb * 8
-    return _bound(nbytes, 2 * qc * n * d, BF16_FLOP_PER_S)
+def scan_bound(qc: int, n: int, d: int, nb: int, row_bytes: int = 2, q_bytes: int = 2):
+    """-> (ms, "bytes" or "operations") of K1 over qc queries of `q_bytes`
+    bytes an element and an [n, d] table of `row_bytes`-byte elements: the
+    queries, table and penalties read once, the [qc, nb] f32 + i32 summary
+    written once; 2 qc n d operations, at the int8 peak where rows and
+    queries are both 8-bit and at the bf16 peak otherwise (8-bit rows
+    against bf16 queries are bf16 products)."""
+    nbytes = qc * d * q_bytes + n * d * row_bytes + n * 4 + qc * nb * 8
+    rate = INT8_OP_PER_S if row_bytes == q_bytes == 1 else BF16_FLOP_PER_S
+    return _bound(nbytes, 2 * qc * n * d, rate)
 
 
 class CallRecorder:

@@ -17,14 +17,15 @@
 // table is 256 MB. Every block re-reads its rows from L2, so the query tile
 // a block holds sets the L2 traffic: (B / queries per block) x table bytes.
 //
-// Two variants. The wrapper's scan_variant (ops/fused_scan.py) picks one by
-// shape; the entry only refuses a "wgmma" launch that wgmma_scan::fits
-// rejects.
+// Four variants. The wrapper's scan_variant (ops/fused_scan.py) picks one
+// by shape and type alone; the entry refuses a launch outside the rule of
+// the variant it names.
 //
-// "wgmma" (bf16 rows, d % 8 == 0, 64 <= d <= 384, L <= 256, S % 128 == 0): one block per
-// (row tile j, BN = 128 buckets, BM = 128 queries), 384 threads.
+// "wgmma" (bf16 rows and queries, d % 8 == 0, 64 <= d <= 384, L <= 256,
+// S % 128 == 0): one block per (row tile j, BN = 128 buckets, BM = 128
+// queries), 384 threads.
 // Warpgroup 0 is the producer: one thread loads the block's query tile once
-// by TMA, then streams the slices' rows as [128 rows x 64 columns] chunks
+// by TMA, then streams the slices' rows as [128 rows x 128 bytes] chunks
 // through an 8-stage ring of shared-memory buffers guarded by mbarriers
 // (full: the TMA bytes landed; empty: all 8 consumer warps are done), so
 // loads run ahead of the products. Warpgroups 1 and 2 are the consumers, 64
@@ -45,12 +46,48 @@
 // setmaxnreg moves registers from the producer (40) to the consumers (232).
 // TMA zero-fills rows past n and queries past qc, so no load is
 // bound-checked; the keys of columns at or past nlim are +inf. A slice holds
-// d/64 ring buffers until it is folded, and the query tile d/64 more: with
-// 8 buffers of 16 KB, d <= 6 * 64 fits 227 KB of shared memory. Blocks are
-// numbered query block first, so the query blocks of one row tile run
-// together and its rows are read from device memory about once.
+// ceil(d/64) ring buffers until it is folded, and the query tile as many
+// more: with 8 buffers of 16 KB, d <= 6 * 64 fits 227 KB of shared memory.
+// Blocks are numbered query block first, so the query blocks of one row
+// tile run together and its rows are read from device memory about once.
+// A bf16 table whose d is not a multiple of 8 (angular's d = 100) is padded
+// with zero columns by fused_knn, in the bf16 copy it makes anyway.
 //
-// "mma" (uint8/int8 rows and every other shape; the first port): one block
+// "wgmma_int8" (uint8 or int8 rows AND queries of the same type, d % 16 ==
+// 0, d <= 256): the same kernel with wgmma m64n64k32 .s32.{u8,s8} and s32
+// sums. A 128-byte swizzle row holds 128 one-byte columns, so boxes, ring,
+// descriptors and the fold are those of "wgmma"; the table stays 1 byte an
+// element on the card (100M x 128 resident), with no copy. |sum| <= 256 *
+// 255^2 < 2^24, so float(sum) is exact and the keys fma(-2, float(sum), pen)
+// are bit-equal to the plain version's. Bound: operations at the int8 rate
+// (1,979 TOP/s), twice the bf16 one, so the fold weighs twice as much.
+//
+// "wgmma_wide" (bf16, d % 8 == 0, 384 < d <= 1024; gist's d = 960). A
+// 128-query tile of d = 960 is 240 KB, more than a block's 227 KB, so a
+// block holds 64 queries: [64 x d <= 1024] bf16 is at most 16 boxes of 8 KB
+// = 128 KB, and two 3-stage rings of 16 KB row boxes (96 KB) take the rest
+// (230,504 of 232,448 bytes at d = 1024, with the 13 barriers and the 1 KB
+// alignment pad). Each block re-reads its rows from L2 once per query
+// block, so at 64 queries a block the L2 reads double (gist 1M, 4096
+// queries: 4096/64 x 1.92 GB = 123 GB a launch against 61 GB at 128). To
+// keep them at the 128-query level, CS = 2 blocks form a cluster on
+// neighbouring SMs and take consecutive query blocks of the same rows:
+// each block loads 1/CS of every row box by TMA multicast into the ring of
+// every block of the cluster, and a ring buffer is refilled only when the
+// consumer warps of all CS blocks have freed it (each arrives on the empty
+// barrier of every block, by mapa). The two consumer warpgroups take
+// alternate slices, each slice one m64n128k16 product over the block's 64
+// queries and 128 buckets (6 KB of shared-memory operands a step, where two
+// m64n64 halves read 8 KB), so one's products run while the other folds;
+// at the end warpgroup 1 hands its minima to warpgroup 0 through the
+// drained ring (lower key, then lower slice, wins). The depth loop runs over ceil(d/64)
+// chunks at run time (one instantiation, not one per depth): each chunk is
+// its own product group, retired one chunk later, when its buffer is
+// freed, so a slice need not fit the ring. Bound: operations (gist 1M x
+// 960, 4096 queries: 7.86 TFLOP, 7.95 ms at 989 TFLOP/s).
+//
+// "mma" (bf16 queries against 8-bit rows, and every other shape; the
+// first port): one block
 // per (row tile j, 128 buckets, 64 queries), 256 threads. The query tile
 // stays in shared memory; each 64-deep chunk of the slice's rows is staged
 // synchronously (converted to bf16: exact for 8-bit values, and with
@@ -285,18 +322,9 @@ cudaError_t launch(const void* q, const void* rows, const void* pen, int qc,
 
 }  // namespace mma_scan
 
-// ---------------------------------------------------------------- wgmma
+// ------------------------------------------------------ TMA and wgmma
 
-namespace wgmma_scan {
-
-constexpr int BM = 128;      // queries per block: two consumer warpgroups x 64
-constexpr int BN = 128;      // buckets per block (S is a multiple of 128)
-constexpr int KW = 64;       // columns per TMA box: 64 bf16 = one 128-byte swizzle row
-constexpr int STAGES = 8;    // row-slice ring depth
-constexpr int MAX_KC = 6;    // d <= 384: query tile + ring fit shared memory
-constexpr int THREADS = 384; // producer warpgroup + two consumer warpgroups
-constexpr int Q_CHUNK = BM * KW * 2;  // bytes of one query box
-constexpr int R_STAGE = BN * KW * 2;  // bytes of one row box
+namespace tma {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -317,6 +345,16 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
 }
 
+// arrive on the barrier at the same offset in block `cta` of the cluster
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(smem_u32(bar)),
+      "r"(cta)
+      : "memory");
+}
+
 // spin until the barrier's phase differs from `parity`
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   uint32_t done;
@@ -332,13 +370,35 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // box (c0 = column, c1 = row) of the tensor map into dst; completes on bar
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int c0, int c1) {
+__device__ __forceinline__ void load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                     int c1) {
   asm volatile(
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// the same box into dst and onto bar at the same offsets in every block of
+// `mask` in the cluster
+__device__ __forceinline__ void load_multicast(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                               int c0, int c1, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "h"(mask)
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;" ::: "memory");
 }
 
 // wgmma operand descriptor: K-major, 128-byte swizzle, 8-row groups 1024 B apart
@@ -354,43 +414,218 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
 
+// keep the compiler from moving accumulator reads across the async product
+__device__ __forceinline__ void pin(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void pin(int32_t (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+#define WGMMA_D32(c)                                                                         \
+  c(d[0]), c(d[1]), c(d[2]), c(d[3]), c(d[4]), c(d[5]), c(d[6]), c(d[7]), c(d[8]), c(d[9]), \
+      c(d[10]), c(d[11]), c(d[12]), c(d[13]), c(d[14]), c(d[15]), c(d[16]), c(d[17]),       \
+      c(d[18]), c(d[19]), c(d[20]), c(d[21]), c(d[22]), c(d[23]), c(d[24]), c(d[25]),       \
+      c(d[26]), c(d[27]), c(d[28]), c(d[29]), c(d[30]), c(d[31])
+#define WGMMA_REGS                                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "               \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+
+// The operand types of a scan. Each 128-byte swizzle row of a TMA box is
+// one K-step group of four wgmma: 64 bf16 columns (k16 each) or 128 8-bit
+// columns (k32 each), so boxes, descriptors and the fold are the same for
+// both; only the instruction, the column count and the accumulator differ.
+struct Bf16 {
+  using acc_t = float;
+  static constexpr int KW = 64;  // columns per 128-byte row
+  static constexpr CUtensorMapDataType TMA = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  // d[64 x 64] (+)= A[64 x 16] B[64 x 16]^T; scale_d = 0 overwrites d
+  __device__ __forceinline__ static void mma(float (&d)[32], uint64_t da, uint64_t db,
+                                             int scale_d) {
+#define F_(x) "+f"(x)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_REGS
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : WGMMA_D32(F_)
+        : "l"(da), "l"(db), "r"(scale_d));
+#undef F_
+  }
+  __device__ __forceinline__ static float value(float a) { return a; }
+};
+
+// 8-bit rows and queries of one type; s32 sums. While d <= 256 every sum
+// is an integer below 2^24 in magnitude, so value() is exact.
+template <bool SIGNED>
+struct Int8 {
+  using acc_t = int32_t;
+  static constexpr int KW = 128;
+  static constexpr CUtensorMapDataType TMA = CU_TENSOR_MAP_DATA_TYPE_UINT8;  // bytes
+  // d[64 x 64] (+)= A[64 x 32] B[64 x 32]^T
+  __device__ __forceinline__ static void mma(int32_t (&d)[32], uint64_t da, uint64_t db,
+                                             int scale_d) {
+#define R_(x) "+r"(x)
+    if constexpr (SIGNED)
+      asm volatile(
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " WGMMA_REGS "%32, %33, p;\n}\n"
+          : WGMMA_D32(R_)
+          : "l"(da), "l"(db), "r"(scale_d));
+    else
+      asm volatile(
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+          "wgmma.mma_async.sync.aligned.m64n64k32.s32.u8.u8 " WGMMA_REGS "%32, %33, p;\n}\n"
+          : WGMMA_D32(R_)
+          : "l"(da), "l"(db), "r"(scale_d));
+#undef R_
+  }
+  __device__ __forceinline__ static float value(int32_t a) { return __int2float_rn(a); }
+};
+
+// The penalties of one thread's columns of a 128-bucket slice: pv[2i + e]
+// for bucket col0 + 8i + 2 (lane % 4) + e, i < 16 (half h of the slice is
+// pv[16h ..]). Columns at or past nlim get +inf, hence a +inf key.
+__device__ __forceinline__ void load_pen(float (&pv)[32], const float* __restrict__ pen,
+                                         int col0, int nlim, int lane) {
+  const int cbase = col0 + 2 * (lane % 4);
+  if (col0 + 128 <= nlim) {  // warp-uniform: the whole slice is valid
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const float2 p = __ldg(reinterpret_cast<const float2*>(pen + cbase + 8 * i));
+      pv[2 * i] = p.x;
+      pv[2 * i + 1] = p.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int col = cbase + 8 * (i / 2) + (i & 1);
+      pv[i] = col < nlim ? __ldg(pen + col) : INFINITY;  // nlim <= n
+    }
+  }
+}
+
+// Fold H 64 x 64 (query, bucket) halves of slice l's accumulator into
+// the running min: element 4i + 2r + e sits at query row 16 warp + lane/4 +
+// 8r and bucket 8i + 2 (lane % 4) + e; its running min is best[4i + 2r +
+// e], and the slice attaining it byte (2r + e) of arg[i]. 2*acc is exact,
+// so one fma(-2, acc, pen) rounds the same as pen - 2*acc.
+template <typename Op, int H>
+__device__ __forceinline__ void fold_halves(const typename Op::acc_t* acc, const float* pv,
+                                            float* best, uint32_t* arg, int l) {
+  const uint32_t lsplat = (uint32_t)l * 0x01010101u;
+#pragma unroll
+  for (int i = 0; i < 8 * H; ++i) {
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const float key = __fmaf_rn(-2.f, Op::value(acc[4 * i + x]), pv[2 * i + (x & 1)]);
+      const bool lt = key < best[4 * i + x];
+      best[4 * i + x] = lt ? key : best[4 * i + x];
+      // byte x of arg[i] <- l: selector 0x3210 with nibble x = 4 (byte 0 of lsplat)
+      const uint32_t sel = (0x3210u & ~(0xfu << (4 * x))) | (4u << (4 * x));
+      arg[i] = lt ? __byte_perm(arg[i], lsplat, sel) : arg[i];
+    }
+  }
+}
+
+template <typename Op>
+__device__ __forceinline__ void fold(typename Op::acc_t (&acc)[32], const float* pv, float* best,
+                                     uint32_t* arg, int l) {
+  pin(acc);
+  fold_halves<Op, 1>(acc, pv, best, arg, l);
+}
+
+// Write one thread's share of a 64 x 128 (query, bucket) tile: queries
+// q_row + {0, 8}, buckets b0 + 8i + 2 (lane % 4) + {0, 1}, as minima and
+// global ids (row_b0 = the global row of bucket b0 in slice 0); best and
+// arg in fold's order, i < 16.
+__device__ __forceinline__ void store_tile(const float* best, const uint32_t* arg, int q_row,
+                                           int qc, int nb, int j, int s, int b0, int row_b0,
+                                           int lane, float* __restrict__ out_min,
+                                           int* __restrict__ out_id) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int gq = q_row + 8 * h;
+    if (gq >= qc) continue;
+    float* om = out_min + (size_t)gq * nb + (size_t)j * s + b0;
+    int* oi = out_id + (size_t)gq * nb + (size_t)j * s + b0;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int c = 8 * i + 2 * (lane % 4);
+      const int l0 = (arg[i] >> (16 * h)) & 0xff;
+      const int l1 = (arg[i] >> (16 * h + 8)) & 0xff;
+      *reinterpret_cast<float2*>(om + c) = make_float2(best[4 * i + 2 * h], best[4 * i + 2 * h + 1]);
+      *reinterpret_cast<int2*>(oi + c) = make_int2(row_b0 + l0 * s + c, row_b0 + l1 * s + c + 1);
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res) ==
+            cudaSuccess &&
+        res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// [rows, d] row-major of `Op`'s element type, read as boxes of 128 bytes of
+// columns x box_rows rows; out-of-bounds elements read as zeros
+template <typename Op>
+bool make_map(CUtensorMap* map, const void* ptr, int rows, int d, int box_rows) {
+  EncodeTiled enc = encoder();
+  if (!enc) return false;
+  const int esize = 128 / Op::KW;
+  cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)rows};
+  cuuint64_t strides[1] = {(cuuint64_t)d * esize};
+  cuuint32_t box[2] = {(cuuint32_t)Op::KW, (cuuint32_t)box_rows};
+  cuuint32_t elem[2] = {1, 1};
+  return enc(map, Op::TMA, 2, const_cast<void*>(ptr), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace tma
+
+// ------------------------------------------------- wgmma and wgmma_int8
+
+namespace wgmma_scan {
+
+using namespace tma;
+
+constexpr int BM = 128;      // queries per block: two consumer warpgroups x 64
+constexpr int BN = 128;      // buckets per block (S is a multiple of 128)
+constexpr int STAGES = 8;    // row-slice ring depth
+constexpr int MAX_KC = 6;    // d <= 384 bf16 columns: query tile + ring fit shared memory
+constexpr int THREADS = 384; // producer warpgroup + two consumer warpgroups
+constexpr int Q_CHUNK = BM * 128;  // bytes of one query box
+constexpr int R_STAGE = BN * 128;  // bytes of one row box
+
 // one arrival per consumer warp frees a ring buffer for the producer
 __device__ __forceinline__ void release(uint64_t* bar, int lane) {
   __syncwarp();
   if (lane == 0) mbar_arrive(bar);
 }
 
-// keep the compiler from moving accumulator reads across the async product
-__device__ __forceinline__ void pin(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d[64 x 64] (+)= A[64 x 16] B[64 x 16]^T; scale_d = 0 overwrites d
-__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db,
-                                                int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// KCS = ceil(d / 64) depth chunks: a compile-time count, so that every
+// KCS = ceil(d / Op::KW) depth chunks: a compile-time count, so that every
 // product group has a fixed length and ptxas can tell which accumulator a
 // wgmma.wait_group retires
-template <int KCS>
+template <int KCS, typename Op>
 __global__ void __launch_bounds__(THREADS, 1)
 scan_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap rmap,
             const float* __restrict__ pen, int qc, int nlim, int t, int L, int nb,
             int nqb, float* __restrict__ out_min, int* __restrict__ out_id) {
+  using acc_t = typename Op::acc_t;
   constexpr int kcs = KCS;
   extern __shared__ unsigned char smem_raw[];
   // 128-byte swizzled tiles want 1024-byte alignment
@@ -424,14 +659,14 @@ scan_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (threadIdx.x == 0) {
       mbar_expect_tx(qbar, kcs * Q_CHUNK);
-      for (int kc = 0; kc < kcs; ++kc) tma_load(qs + kc * Q_CHUNK, &qmap, qbar, kc * KW, q0);
+      for (int kc = 0; kc < kcs; ++kc) load(qs + kc * Q_CHUNK, &qmap, qbar, kc * Op::KW, q0);
       int stage = 0;
       uint32_t phase = 0;
       for (int l = 0; l < L; ++l)
         for (int kc = 0; kc < kcs; ++kc) {
           mbar_wait(&empty[stage], phase ^ 1);
           mbar_expect_tx(&full[stage], R_STAGE);
-          tma_load(ring + stage * R_STAGE, &rmap, &full[stage], kc * KW, row0 + l * s);
+          load(ring + stage * R_STAGE, &rmap, &full[stage], kc * Op::KW, row0 + l * s);
           if (++stage == STAGES) {
             stage = 0;
             phase ^= 1;
@@ -444,16 +679,15 @@ scan_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
     const int cw = ct / 128;  // consumer warpgroup: queries [64 cw, 64 cw + 64)
     const int warp = (ct % 128) / 32, lane = ct % 32;
     // The warpgroup's 64 x 128 (query, bucket) tile is two 64 x 64 halves
-    // with an accumulator each (acc0, acc1). Element 4i + 2r + e of half h
-    // sits at query row 16 warp + lane/4 + 8r and bucket 64h + 8i +
-    // 2 (lane % 4) + e; its running min is best[32h + 4i + 2r + e], and the
-    // slice attaining it byte (2r + e) of arg[8h + i].
-    float acc0[32], acc1[32], best[64];
+    // with an accumulator each (acc0, acc1) and a running min each: half h
+    // keeps best[32h ..] and arg[8h ..] (see fold).
+    acc_t acc0[32], acc1[32];
+    float best[64];
     uint32_t arg[16];
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
-      acc0[i] = 0.f;
-      acc1[i] = 0.f;
+      acc0[i] = 0;
+      acc1[i] = 0;
     }
 #pragma unroll
     for (int i = 0; i < 64; ++i) best[i] = INFINITY;
@@ -467,7 +701,7 @@ scan_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
     // slice l's depth chunk kc is ring load g = l * kcs + kc: buffer g % STAGES,
     // filled for the (g / STAGES)-th time; half h reads its rows 64h.. of it.
     // One product group per (slice, half).
-    auto issue = [&](float(&acc)[32], int l, int h) {
+    auto issue = [&](acc_t(&acc)[32], int l, int h) {
       pin(acc);
 #pragma unroll
       for (int kc = 0; kc < kcs; ++kc) {
@@ -475,52 +709,11 @@ scan_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
         mbar_wait(&full[g % STAGES], (g / STAGES) & 1);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)  // 16 columns = 32 bytes per step
-          wgmma_m64n64k16(acc, desc(qa + kc * Q_CHUNK + kk * 32),
-                          desc(ra + (g % STAGES) * R_STAGE + h * (64 * 128) + kk * 32),
-                          (kc | kk) != 0);
+        for (int kk = 0; kk < 4; ++kk)  // 32 bytes of columns per step
+          Op::mma(acc, desc(qa + kc * Q_CHUNK + kk * 32),
+                  desc(ra + (g % STAGES) * R_STAGE + h * (64 * 128) + kk * 32), (kc | kk) != 0);
       }
       wgmma_commit();
-    };
-    // the penalties of this thread's 32 columns of slice l: pv[16h + 2i + e]
-    // for bucket 64h + 8i + 2 (lane % 4) + e. Columns at or past nlim get
-    // +inf, hence a +inf key.
-    auto load_pen = [&](float(&pv)[32], int l) {
-      const int cbase = row0 + l * s + 2 * (lane % 4);
-      if (row0 + l * s + BN <= nlim) {  // warp-uniform: the whole slice is valid
-#pragma unroll
-        for (int i = 0; i < 16; ++i) {
-          const float2 p = __ldg(reinterpret_cast<const float2*>(pen + cbase + 8 * i));
-          pv[2 * i] = p.x;
-          pv[2 * i + 1] = p.y;
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < 32; ++i) {
-          const int col = cbase + 8 * (i / 2) + (i & 1);
-          pv[i] = col < nlim ? __ldg(pen + col) : INFINITY;  // nlim <= n
-        }
-      }
-    };
-    // fold half h of slice l (its products are done) into the running min;
-    // 2*acc is exact, so one fma(-2, acc, pen) rounds the same as pen - 2*acc
-    auto fold = [&](float(&acc)[32], const float(&pv)[32], int l, int h) {
-      pin(acc);
-      const uint32_t lsplat = (uint32_t)l * 0x01010101u;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-#pragma unroll
-        for (int x = 0; x < 4; ++x) {
-          const int o = 32 * h + 4 * i + x;
-          const float key = __fmaf_rn(-2.f, acc[4 * i + x], pv[16 * h + 2 * i + (x & 1)]);
-          const bool lt = key < best[o];
-          best[o] = lt ? key : best[o];
-          // byte x of arg[o / 4] <- l: selector 0x3210 with nibble x = 4
-          // (byte 0 of lsplat)
-          const uint32_t sel = (0x3210u & ~(0xfu << (4 * x))) | (4u << (4 * x));
-          arg[o / 4] = lt ? __byte_perm(arg[o / 4], lsplat, sel) : arg[o / 4];
-        }
-      }
     };
     // both halves of slice l are folded: free its ring buffers
     auto release_slice = [&](int l) {
@@ -533,138 +726,360 @@ scan_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
     // slice's half 0 during this slice's half 1) makes ptxas serialize
     // every wgmma, which costs more than it overlaps.
     float pv[32], pn[32];
-    load_pen(pv, 0);
+    load_pen(pv, pen, row0, nlim, lane);
     for (int l = 0; l < L; ++l) {
       issue(acc0, l, 0);
       issue(acc1, l, 1);
       // the next slice's penalties: loaded after this slice's fences (a
       // wgmma fence waits for every register load in flight) and used a
       // slice later
-      if (l + 1 < L) load_pen(pn, l + 1);
+      if (l + 1 < L) load_pen(pn, pen, row0 + (l + 1) * s, nlim, lane);
       wgmma_wait<1>();
-      fold(acc0, pv, l, 0);
+      fold<Op>(acc0, pv, best, arg, l);
       wgmma_wait<0>();
-      fold(acc1, pv, l, 1);
+      fold<Op>(acc1, pv + 16, best + 32, arg + 8, l);
       release_slice(l);
 #pragma unroll
       for (int i = 0; i < 32; ++i) pv[i] = pn[i];
     }
 
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int gq = q0 + 64 * cw + 16 * warp + lane / 4 + 8 * h;
-      if (gq >= qc) continue;
-      float* om = out_min + (size_t)gq * nb + (size_t)j * s + b0;
-      int* oi = out_id + (size_t)gq * nb + (size_t)j * s + b0;
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        const int c = 8 * i + 2 * (lane % 4);
-        const int l0 = (arg[i] >> (16 * h)) & 0xff;
-        const int l1 = (arg[i] >> (16 * h + 8)) & 0xff;
-        *reinterpret_cast<float2*>(om + c) = make_float2(best[4 * i + 2 * h], best[4 * i + 2 * h + 1]);
-        *reinterpret_cast<int2*>(oi + c) = make_int2(row0 + l0 * s + c, row0 + l1 * s + c + 1);
-      }
-    }
+    store_tile(best, arg, q0 + 64 * cw + 16 * warp + lane / 4, qc, nb, j, s, b0, row0, lane,
+               out_min, out_id);
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res) ==
-            cudaSuccess &&
-        res == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// [rows, d] bf16, row-major, read as boxes of 64 columns x box_rows rows;
-// out-of-bounds elements read as zeros
-bool make_map(CUtensorMap* map, const void* ptr, int rows, int d, int box_rows) {
-  EncodeTiled enc = encoder();
-  if (!enc) return false;
-  cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)rows};
-  cuuint64_t strides[1] = {(cuuint64_t)d * 2};
-  cuuint32_t box[2] = {(cuuint32_t)KW, (cuuint32_t)box_rows};
-  cuuint32_t elem[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
-             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
+// bf16: KW = 64, d % 8 == 0 (TMA strides rows by a multiple of 16 bytes),
+// 64 <= d <= 384. 8-bit: KW = 128, d % 16 == 0, d <= 256 (exact sums).
+template <typename Op>
 bool fits(const void* q, const void* rows, const void* pen, int d, int t, int L) {
-  return d % 8 == 0 && d >= KW && d <= MAX_KC * KW && L <= 256 && t % L == 0 && (t / L) % BN == 0 &&
-         (uintptr_t)q % 16 == 0 && (uintptr_t)rows % 16 == 0 && (uintptr_t)pen % 8 == 0;
+  const bool width = Op::KW == 64 ? d % 8 == 0 && d >= 64 && d <= MAX_KC * 64
+                                  : d % 16 == 0 && d <= 256;
+  return width && L <= 256 && t % L == 0 && (t / L) % BN == 0 && (uintptr_t)q % 16 == 0 &&
+         (uintptr_t)rows % 16 == 0 && (uintptr_t)pen % 8 == 0;
 }
 
-template <int KCS>
+template <int KCS, typename Op>
 cudaError_t run(const CUtensorMap& qmap, const CUtensorMap& rmap, const void* pen, int qc,
                 int nlim, int t, int L, int nb, int nqb, long long blocks, void* out_min,
                 void* out_id, cudaStream_t stream) {
   const size_t smem = 1024 + (size_t)STAGES * R_STAGE + (size_t)KCS * Q_CHUNK +
                       (2 * STAGES + 1) * sizeof(uint64_t);
-  cudaError_t e = cudaFuncSetAttribute(scan_kernel<KCS>,
+  cudaError_t e = cudaFuncSetAttribute(scan_kernel<KCS, Op>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  scan_kernel<KCS><<<(unsigned)blocks, THREADS, smem, stream>>>(
+  scan_kernel<KCS, Op><<<(unsigned)blocks, THREADS, smem, stream>>>(
       qmap, rmap, static_cast<const float*>(pen), qc, nlim, t, L, nb, nqb,
       static_cast<float*>(out_min), static_cast<int*>(out_id));
   return cudaGetLastError();
 }
 
+template <typename Op>
+cudaError_t launch(const void* q, const void* rows, const void* pen, int qc, int n, int d,
+                   int nlim, int t, int L, int nb, void* out_min, void* out_id,
+                   cudaStream_t stream) {
+  CUtensorMap qmap, rmap;
+  if (!make_map<Op>(&qmap, q, qc, d, BM) || !make_map<Op>(&rmap, rows, n, d, BN))
+    return cudaErrorInvalidValue;
+  const int kcs = (d + Op::KW - 1) / Op::KW;
+  const int nqb = (qc + BM - 1) / BM;
+  const int n_tiles = (n + t - 1) / t;
+  const long long blocks = (long long)nqb * n_tiles * ((t / L) / BN);
+#define RUN_(K) \
+  return run<K, Op>(qmap, rmap, pen, qc, nlim, t, L, nb, nqb, blocks, out_min, out_id, stream)
+  if constexpr (Op::KW == 128) {  // d <= 256: one or two chunks
+    switch (kcs) {
+      case 1: RUN_(1);
+      case 2: RUN_(2);
+      default: return cudaErrorInvalidValue;
+    }
+  } else {
+    switch (kcs) {
+      case 1: RUN_(1);
+      case 2: RUN_(2);
+      case 3: RUN_(3);
+      case 4: RUN_(4);
+      case 5: RUN_(5);
+      case 6: RUN_(6);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+#undef RUN_
+}
+
+}  // namespace wgmma_scan
+
+// ---------------------------------------------------------- wgmma_wide
+
+namespace wide_scan {
+
+using namespace tma;
+
+// blocks of a cluster: they share every row box. 2 read faster than 1 or 4
+// (copies of this source with CS changed, timed by bench/kernel_ab.py; PERF.md)
+constexpr int CS = 2;
+constexpr int BM = 64;            // queries per block
+constexpr int BN = 128;           // buckets per block
+constexpr int STAGES = 3;         // depth of each consumer warpgroup's row ring
+constexpr int MAX_KC = 16;        // d <= 1024
+constexpr int THREADS = 384;      // producer warpgroup + two consumer warpgroups
+constexpr int Q_CHUNK = BM * 128;      // bytes of one query box: 64 rows x 64 bf16
+constexpr int R_STAGE = BN * 128;      // bytes of one row box: 128 rows x 64 bf16
+constexpr int R_PART = R_STAGE / CS;   // the rows of it that each block loads
+
+// d[64 x 128] (+)= A[64 x 16] B[128 x 16]^T; scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void pin(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// a consumer warp frees a ring buffer in every block of the cluster (the
+// producers of all of them write into it): lane c arrives on block c's
+__device__ __forceinline__ void release(uint64_t* bar, int lane) {
+  __syncwarp();
+  if (lane < CS) mbar_arrive_cluster(bar, lane);
+}
+
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;" ::: "memory");
+}
+
+// One block per (row tile j, 128 buckets, 64 queries); the CS blocks of a
+// cluster take consecutive query blocks of the same rows. Consumer
+// warpgroup w takes the slices l = w (mod 2), each as one 64 x 128 product
+// (m64n128k16: 6 KB of shared-memory operands a 64 x 128 x 16 step, where
+// two m64n64 halves would read 8 KB), so one warpgroup's products run
+// while the other folds. Each warpgroup has a ring of its own, filled by a
+// producer thread of its own (threads 0 and 32), so each ring is read in
+// the order it is filled: a parity wait on a shared ring could not tell a
+// load two fills ahead from the one it waits for. The depth loop runs over
+// kcs = ceil(d / 64) chunks at run time: each chunk is its own product
+// group, retired one chunk later, when its ring buffer is freed. At the end
+// warpgroup 1 hands its running minima to warpgroup 0 through the drained
+// rings, and the lower key wins, the lower slice on a tie.
+__global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(THREADS, 1)
+scan_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap rmap,
+            const float* __restrict__ pen, int qc, int nlim, int t, int L, int nb, int nqb,
+            int kcs, float* __restrict__ out_min, int* __restrict__ out_id) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* rings = base;                    // [2][STAGES][BN rows x 128 B]
+  unsigned char* qs = base + 2 * STAGES * R_STAGE;  // [kcs][BM rows x 128 B]
+  uint64_t* fulls = reinterpret_cast<uint64_t*>(qs + kcs * Q_CHUNK);  // [2][STAGES]
+  uint64_t* empties = fulls + 2 * STAGES;                              // [2][STAGES]
+  uint64_t* qbar = empties + 2 * STAGES;
+
+  const int s = t / L;
+  const int tiles_s = s / BN;
+  const int q0 = (blockIdx.x % nqb) * BM;
+  const int rest = blockIdx.x / nqb;
+  const int j = rest / tiles_s;
+  const int b0 = (rest % tiles_s) * BN;
+  const int row0 = j * t + b0;
+  const uint32_t rank = cluster_rank();
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2 * STAGES; ++i) {
+      mbar_init(&fulls[i], 1);
+      mbar_init(&empties[i], 4 * CS);  // the owning warpgroup's warps in every block
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cluster_sync();  // no block arrives on or loads into another before its init
+
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(qbar, kcs * Q_CHUNK);
+      for (int kc = 0; kc < kcs; ++kc) load(qs + kc * Q_CHUNK, &qmap, qbar, kc * 64, q0);
+    }
+    if (threadIdx.x % 32 == 0 && threadIdx.x < 64) {  // thread 32 w fills ring w
+      const int w = threadIdx.x / 32;
+      unsigned char* ring = rings + w * STAGES * R_STAGE;
+      uint64_t* full = fulls + w * STAGES;
+      uint64_t* empty = empties + w * STAGES;
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int l = w; l < L; l += 2)
+        for (int kc = 0; kc < kcs; ++kc) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_expect_tx(&full[stage], R_STAGE);  // CS parts, one from each block
+          load_multicast(ring + stage * R_STAGE + rank * R_PART, &rmap, &full[stage], kc * 64,
+                         row0 + l * s + rank * (BN / CS), (uint16_t)((1u << CS) - 1));
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int ct = threadIdx.x - 128;
+    const int cw = ct / 128;  // consumer warpgroup: slices l = cw (mod 2)
+    const int wt = ct % 128;
+    const int warp = wt / 32, lane = ct % 32;
+    float acc[64], best[64], pv[32];
+    uint32_t arg[16];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      acc[i] = 0.f;
+      best[i] = INFINITY;
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) arg[i] = 0;
+
+    const uint32_t qa = smem_u32(qs);
+    const uint32_t ra = smem_u32(rings + cw * STAGES * R_STAGE);
+    uint64_t* full = fulls + cw * STAGES;
+    uint64_t* empty = empties + cw * STAGES;
+    mbar_wait(qbar, 0);
+    int g = 0;  // loads of this warpgroup's ring consumed so far
+    for (int l = cw; l < L; l += 2) {
+      load_pen(pv, pen, row0 + l * s, nlim, lane);
+      pin(acc);
+      for (int kc = 0; kc < kcs; ++kc, ++g) {
+        const int stage = g % STAGES;
+        mbar_wait(&full[stage], (g / STAGES) & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_m64n128k16(acc, desc(qa + kc * Q_CHUNK + kk * 32),
+                           desc(ra + stage * R_STAGE + kk * 32), (kc | kk) != 0);
+        wgmma_commit();
+        if (kc > 0) {
+          wgmma_wait<1>();  // chunk kc - 1's products are done
+          release(&empty[(g - 1) % STAGES], lane);
+        }
+      }
+      wgmma_wait<0>();
+      release(&empty[(g - 1) % STAGES], lane);
+      pin(acc);
+      fold_halves<Bf16, 2>(acc, pv, best, arg, l);
+    }
+
+    // every load into this block's rings has landed and been read: reuse them
+    float* mb = reinterpret_cast<float*>(rings);                  // [64][128]
+    uint32_t* ma = reinterpret_cast<uint32_t*>(rings + 64 * 128 * 4);  // [16][128]
+    consumers_sync();
+    if (cw == 1) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) mb[i * 128 + wt] = best[i];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) ma[i * 128 + wt] = arg[i];
+    }
+    consumers_sync();
+    if (cw == 0) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const uint32_t other = ma[i * 128 + wt];
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const float b1 = mb[(4 * i + x) * 128 + wt];
+          const uint32_t l1 = (other >> (8 * x)) & 0xff, l0 = (arg[i] >> (8 * x)) & 0xff;
+          const bool take = b1 < best[4 * i + x] || (b1 == best[4 * i + x] && l1 < l0);
+          best[4 * i + x] = take ? b1 : best[4 * i + x];
+          const uint32_t sel = (0x3210u & ~(0xfu << (4 * x))) | ((4u + x) << (4 * x));
+          arg[i] = take ? __byte_perm(arg[i], other, sel) : arg[i];
+        }
+      }
+      store_tile(best, arg, q0 + 16 * warp + lane / 4, qc, nb, j, s, b0, row0, lane, out_min,
+                 out_id);
+    }
+  }
+  cluster_sync();  // no block leaves while another may still arrive on its barriers
+}
+
+bool fits(const void* q, const void* rows, const void* pen, int d, int t, int L) {
+  return d % 8 == 0 && d > wgmma_scan::MAX_KC * 64 && d <= MAX_KC * 64 && L <= 256 &&
+         t % L == 0 && (t / L) % BN == 0 && (uintptr_t)q % 16 == 0 &&
+         (uintptr_t)rows % 16 == 0 && (uintptr_t)pen % 8 == 0;
+}
 
 cudaError_t launch(const void* q, const void* rows, const void* pen, int qc, int n, int d,
                    int nlim, int t, int L, int nb, void* out_min, void* out_id,
                    cudaStream_t stream) {
   CUtensorMap qmap, rmap;
-  if (!make_map(&qmap, q, qc, d, BM) || !make_map(&rmap, rows, n, d, BN))
+  if (!make_map<Bf16>(&qmap, q, qc, d, BM) || !make_map<Bf16>(&rmap, rows, n, d, BN / CS))
     return cudaErrorInvalidValue;
-  const int kcs = (d + KW - 1) / KW;
-  const int nqb = (qc + BM - 1) / BM;
+  const int kcs = (d + 63) / 64;
+  const int nqb = ((qc + BM - 1) / BM + CS - 1) / CS * CS;  // whole clusters
   const int n_tiles = (n + t - 1) / t;
   const long long blocks = (long long)nqb * n_tiles * ((t / L) / BN);
-  switch (kcs) {
-    case 1: return run<1>(qmap, rmap, pen, qc, nlim, t, L, nb, nqb, blocks, out_min, out_id, stream);
-    case 2: return run<2>(qmap, rmap, pen, qc, nlim, t, L, nb, nqb, blocks, out_min, out_id, stream);
-    case 3: return run<3>(qmap, rmap, pen, qc, nlim, t, L, nb, nqb, blocks, out_min, out_id, stream);
-    case 4: return run<4>(qmap, rmap, pen, qc, nlim, t, L, nb, nqb, blocks, out_min, out_id, stream);
-    case 5: return run<5>(qmap, rmap, pen, qc, nlim, t, L, nb, nqb, blocks, out_min, out_id, stream);
-    case 6: return run<6>(qmap, rmap, pen, qc, nlim, t, L, nb, nqb, blocks, out_min, out_id, stream);
-    default: return cudaErrorInvalidValue;
-  }
+  const size_t smem = 1024 + (size_t)2 * STAGES * R_STAGE + (size_t)kcs * Q_CHUNK +
+                      (4 * STAGES + 1) * sizeof(uint64_t);
+  cudaError_t e =
+      cudaFuncSetAttribute(scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  scan_kernel<<<(unsigned)blocks, THREADS, smem, stream>>>(
+      qmap, rmap, static_cast<const float*>(pen), qc, nlim, t, L, nb, nqb, kcs,
+      static_cast<float*>(out_min), static_cast<int*>(out_id));
+  return cudaGetLastError();
 }
 
-}  // namespace wgmma_scan
+}  // namespace wide_scan
 
 }  // namespace
 
-// row_type: 0 = bfloat16, 1 = uint8, 2 = int8. variant: 0 = "mma", 1 =
-// "wgmma", as the wrapper's scan_variant chose it; a "wgmma" launch at a
-// shape outside that rule returns cudaErrorInvalidValue. Returns
-// cudaGetLastError().
-extern "C" int fused_scan_launch(const void* q, const void* rows, int row_type,
-                                 const void* pen, int qc, int n, int d,
-                                 int nlim, int t, int L, int nb, int variant,
-                                 void* out_min, void* out_id, void* stream) {
+// q_type / row_type: 0 = bfloat16, 1 = uint8, 2 = int8. variant: 0 = "mma",
+// 1 = "wgmma", 2 = "wgmma_wide", 3 = "wgmma_int8", as the wrapper's
+// scan_variant chose it; a launch at a shape or type outside that
+// variant's rule returns cudaErrorInvalidValue. Returns cudaGetLastError().
+extern "C" int fused_scan_launch(const void* q, int q_type, const void* rows, int row_type,
+                                 const void* pen, int qc, int n, int d, int nlim, int t, int L,
+                                 int nb, int variant, void* out_min, void* out_id, void* stream) {
+  using wgmma_scan::fits;
+  constexpr int bad = (int)cudaErrorInvalidValue;
+  if (q_type < 0 || q_type > 2 || row_type < 0 || row_type > 2) return bad;
   if (qc == 0 || n == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (variant == 1) {
-    if (row_type != 0 || !wgmma_scan::fits(q, rows, pen, d, t, L)) return (int)cudaErrorInvalidValue;
-    return wgmma_scan::launch(q, rows, pen, qc, n, d, nlim, t, L, nb, out_min, out_id, s);
-  }
-  switch (row_type) {
-    case 0: return mma_scan::launch<__nv_bfloat16>(q, rows, pen, qc, n, d, nlim, t, L, nb, out_min, out_id, s);
-    case 1: return mma_scan::launch<uint8_t>(q, rows, pen, qc, n, d, nlim, t, L, nb, out_min, out_id, s);
-    case 2: return mma_scan::launch<int8_t>(q, rows, pen, qc, n, d, nlim, t, L, nb, out_min, out_id, s);
-    default: return (int)cudaErrorInvalidValue;
+  const bool bf16 = q_type == 0 && row_type == 0;
+  switch (variant) {
+    case 0:  // bf16 queries; bf16 or 8-bit rows
+      if (q_type != 0) return bad;
+      switch (row_type) {
+        case 0: return mma_scan::launch<__nv_bfloat16>(q, rows, pen, qc, n, d, nlim, t, L, nb, out_min, out_id, s);
+        case 1: return mma_scan::launch<uint8_t>(q, rows, pen, qc, n, d, nlim, t, L, nb, out_min, out_id, s);
+        default: return mma_scan::launch<int8_t>(q, rows, pen, qc, n, d, nlim, t, L, nb, out_min, out_id, s);
+      }
+    case 1:
+      if (!bf16 || !fits<tma::Bf16>(q, rows, pen, d, t, L)) return bad;
+      return wgmma_scan::launch<tma::Bf16>(q, rows, pen, qc, n, d, nlim, t, L, nb, out_min, out_id, s);
+    case 2:
+      if (!bf16 || !wide_scan::fits(q, rows, pen, d, t, L)) return bad;
+      return wide_scan::launch(q, rows, pen, qc, n, d, nlim, t, L, nb, out_min, out_id, s);
+    case 3:
+      if (q_type != row_type || row_type == 0) return bad;
+      if (row_type == 1) {
+        if (!fits<tma::Int8<false>>(q, rows, pen, d, t, L)) return bad;
+        return wgmma_scan::launch<tma::Int8<false>>(q, rows, pen, qc, n, d, nlim, t, L, nb, out_min, out_id, s);
+      }
+      if (!fits<tma::Int8<true>>(q, rows, pen, d, t, L)) return bad;
+      return wgmma_scan::launch<tma::Int8<true>>(q, rows, pen, qc, n, d, nlim, t, L, nb, out_min, out_id, s);
+    default:
+      return bad;
   }
 }

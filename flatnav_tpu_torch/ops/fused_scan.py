@@ -11,9 +11,14 @@ distances (or, with `exact_rerank=False`, ranked by the kernel's own keys).
 On a CUDA tensor `scan_buckets` launches the hand-written kernel
 `csrc/fused_scan.cu` (it replaces the Pallas TPU kernel
 flatnav_tpu/ops/fused_scan.py:_scan_kernel); on a CPU tensor it runs
-`scan_buckets_plain`. The kernel has two variants, chosen by shape alone
-(`scan_variant`): "wgmma" (TMA-fed wgmma, bf16 rows with d % 8 == 0 and
-64 <= d <= 384) and "mma" (mma.sync; 8-bit rows and every other shape).
+`scan_buckets_plain`. The kernel has four variants, chosen by shape and
+type alone (`scan_variant`): "wgmma" (TMA-fed wgmma, bf16 with d % 8 == 0
+and 64 <= d <= 384), "wgmma_wide" (the same for 384 < d <= 1024, in
+clusters of two blocks that share each row load), "wgmma_int8" (integer
+wgmma, 8-bit rows and queries of one type, d % 16 == 0) and "mma"
+(mma.sync; every other shape). `fused_knn` pads a bf16 copy whose d is not
+a multiple of 8 with zero columns, and hands 8-bit queries of an 8-bit
+table to the kernel as they are.
 A true neighbor is lost only if another row of its L-bucket scores better,
 or if bf16 rounding pushes its bucket past the shortlist; both are measured
 against the exact oracle in the tests.
@@ -41,12 +46,13 @@ _TILE = 2048
 _L = 16
 
 #: each block streams its 128-bucket share of a [T, d] row tile from L2, once
-#: for every query block (128 queries for "wgmma", 64 for "mma"); 4 MiB per
-#: tile keeps the tiles of the blocks in flight inside the 50 MB L2. Keys and
-#: the running min/argmin live in registers, and the kernel's shared memory
-#: holds the block's query tile and 64-column slices of 128 rows (an 8-stage
-#: ring for "wgmma", one buffer for "mma"), none of which grows with T, so no
-#: other budget bounds T.
+#: for every query block (128 queries for "wgmma" and "wgmma_int8", a cluster
+#: of 2 x 64 for "wgmma_wide", 64 for "mma"); 4 MiB per tile keeps the tiles
+#: of the blocks in flight inside the 50 MB L2. Keys and the running
+#: min/argmin live in registers, and the kernel's shared memory holds the
+#: block's query tile and 128-byte-wide slices of 128 rows (an 8-stage ring
+#: for "wgmma" and "wgmma_int8", two 3-stage rings for "wgmma_wide", one
+#: buffer for "mma"), none of which grows with T, so no other budget bounds T.
 _ROWS_BYTES = 4 << 20
 
 #: bound on the phase-A [qc, N/L] f32+i32 bucket summary. Past it L grows
@@ -57,7 +63,9 @@ _SUMMARY_BYTES = 2 << 30
 #: is: d * 255^2 < 2^24  =>  d <= 257
 _NATIVE_INT_MAX_D = 257
 
+#: element type -> its number in the C interface (rows and queries)
 _ROW_TYPES = {torch.bfloat16: 0, torch.uint8: 1, torch.int8: 2}
+_INT8 = (torch.uint8, torch.int8)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -118,12 +126,36 @@ def _pick_shapes(
     return L, t, qb, qc
 
 
+def scan_operands(dataset: torch.Tensor, queries: torch.Tensor):
+    """(rows, queries) as `fused_knn` hands them to `scan_buckets`.
+
+    uint8/int8 tables at d <= 257 stay as they are; their queries too where
+    they have the table's type (else bf16, exact for 8-bit values). Other
+    tables go through one bf16 copy, and so do their queries; where d is not
+    a multiple of 8 that copy carries zero columns up to the next multiple,
+    which add exactly 0 to every product (TMA reads rows of a multiple of 16
+    bytes)."""
+    n, d = dataset.shape
+    if dataset.dtype in _INT8 and d <= _NATIVE_INT_MAX_D:
+        q = queries if queries.dtype == dataset.dtype else queries.to(torch.bfloat16)
+        return dataset, q
+    dp = _round_up(d, 8)
+    if dp == d:
+        return dataset.to(torch.bfloat16), queries.to(torch.bfloat16)
+    rows = torch.zeros((n, dp), dtype=torch.bfloat16, device=dataset.device)
+    rows[:, :d] = dataset
+    q = torch.zeros((queries.shape[0], dp), dtype=torch.bfloat16, device=queries.device)
+    q[:, :d] = queries
+    return rows, q
+
+
 def scan_buckets_plain(
     q_bf: torch.Tensor, rows: torch.Tensor, pen: torch.Tensor,
     nlim: int, t: int, L: int,
 ):
     """Plain version of the kernel: per row tile, the [qc, T] keys, then the
-    strided bucket min over the L slices (first minimum wins ties)."""
+    strided bucket min over the L slices (first minimum wins ties). The
+    queries are bf16 or of the rows' 8-bit type; both are exact in f32."""
     qc = q_bf.shape[0]
     n = rows.shape[0]
     s = t // L
@@ -154,31 +186,43 @@ def _lib():
     fn = _build.load("fused_scan").fused_scan_launch
     if not fn.argtypes:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, i, p, i, i, i, i, i, i, i, i, p, p, p]
+        fn.argtypes = [p, i, p, i, p, i, i, i, i, i, i, i, i, p, p, p]
         fn.restype = ctypes.c_int
     return fn
 
 
 #: kernel variant -> its number in the C interface
-VARIANTS = {"mma": 0, "wgmma": 1}
+VARIANTS = {"mma": 0, "wgmma": 1, "wgmma_wide": 2, "wgmma_int8": 3}
 
 
-def scan_variant(q_bf: torch.Tensor, rows: torch.Tensor, pen: torch.Tensor, t: int, L: int) -> str:
+def scan_variant(q: torch.Tensor, rows: torch.Tensor, pen: torch.Tensor, t: int, L: int) -> str:
     """The kernel variant `scan_buckets` launches for these (contiguous)
-    arguments, by shape alone: "wgmma" takes bf16 rows whose 64 <= d <= 384
-    and d % 8 == 0 (TMA reads rows of a multiple of 16 bytes, from
-    16-byte-aligned tensors; penalties are read in 8-byte pairs) with
-    L <= 256 slices (packed eight bits each) and S = T/L a multiple of its
-    128-bucket tile; "mma" takes the rest, 8-bit rows included. The C entry
-    only refuses a "wgmma" launch at a shape outside this rule."""
+    arguments, by shape and type alone. Every TMA variant needs L <= 256
+    slices (packed eight bits each), S = T/L a multiple of its 128-bucket
+    tile, 16-byte-aligned rows and queries and 8-byte-aligned penalties
+    (read in pairs), and rows of a multiple of 16 bytes:
+      "wgmma"       bf16 rows and queries, d % 8 == 0, 64 <= d <= 384;
+      "wgmma_wide"  the same with 384 < d <= 1024;
+      "wgmma_int8"  uint8 or int8 rows with queries of the same type,
+                    d % 16 == 0, d <= 256;
+      "mma"         everything else, 8-bit rows with bf16 queries included.
+    The C entry refuses a launch outside the rule of the variant it names."""
     d = rows.shape[1]
-    ok = (
-        rows.dtype == torch.bfloat16 and d % 8 == 0 and 64 <= d <= 384 and L <= 256
-        and t % L == 0 and (t // L) % 128 == 0
-        and rows.data_ptr() % 16 == 0 and q_bf.data_ptr() % 16 == 0
+    common = (
+        L <= 256 and t % L == 0 and (t // L) % 128 == 0
+        and rows.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0
         and pen.data_ptr() % 8 == 0
     )
-    return "wgmma" if ok else "mma"
+    if not common:
+        return "mma"
+    if rows.dtype == q.dtype == torch.bfloat16 and d % 8 == 0:
+        if 64 <= d <= 384:
+            return "wgmma"
+        if 384 < d <= 1024:
+            return "wgmma_wide"
+    if rows.dtype in _INT8 and q.dtype == rows.dtype and d % 16 == 0 and d <= 256:
+        return "wgmma_int8"
+    return "mma"
 
 
 def scan_buckets(
@@ -188,13 +232,14 @@ def scan_buckets(
     """Phase A: ([qc, nb] f32 bucket minima, [qc, nb] i32 global ids), with
     nb = ceil(N / t) * (t / L).
 
-    q_bf [qc, d] bf16; rows [N, d] bf16, uint8 or int8; pen [N] f32 (the L2
-    ||row||^2 term, zeros for IP); rows at or past `nlim` score +inf.
-    `scan_buckets.launches` counts kernel launches, and
+    q_bf [qc, d] bf16, or of the rows' 8-bit type; rows [N, d] bf16, uint8
+    or int8; pen [N] f32 (the L2 ||row||^2 term, zeros for IP); rows at or
+    past `nlim` score +inf. 8-bit queries that take "mma" are widened to
+    bf16 (exact). `scan_buckets.launches` counts kernel launches, and
     `scan_buckets.variants` the launches of each variant."""
     if rows.device.type == "cpu":
         return scan_buckets_plain(q_bf, rows, pen, nlim, t, L)
-    if rows.dtype not in _ROW_TYPES or q_bf.dtype != torch.bfloat16:
+    if rows.dtype not in _ROW_TYPES or q_bf.dtype not in (torch.bfloat16, rows.dtype):
         raise TypeError(
             f"scan_buckets: unsupported dtypes rows={rows.dtype} q={q_bf.dtype}"
         )
@@ -211,10 +256,12 @@ def scan_buckets(
     if not (q_bf.device == pen.device == rows.device):
         raise ValueError("scan_buckets: tensors are on different devices")
     variant = scan_variant(q_bf, rows, pen, t, L)
+    if variant == "mma":
+        q_bf = q_bf.to(torch.bfloat16)
     out_min = torch.empty((qc, nb), dtype=torch.float32, device=rows.device)
     out_id = torch.empty((qc, nb), dtype=torch.int32, device=rows.device)
     rc = _lib()(
-        q_bf.data_ptr(), rows.data_ptr(), _ROW_TYPES[rows.dtype],
+        q_bf.data_ptr(), _ROW_TYPES[q_bf.dtype], rows.data_ptr(), _ROW_TYPES[rows.dtype],
         pen.data_ptr(), qc, n, d, min(int(nlim), n), t, L, nb, VARIANTS[variant],
         out_min.data_ptr(), out_id.data_ptr(),
         torch.cuda.current_stream(rows.device).cuda_stream,
@@ -246,7 +293,9 @@ def fused_knn(
 
     Distances are exact (float32, or exact int32 for integer tables) after
     the rerank. uint8/int8 tables at d <= 257 ride the kernel unpromoted,
-    with exact integer keys; other tables are scanned through a bf16 copy.
+    with exact integer keys (and so do their queries where they have the
+    table's type); other tables are scanned through a bf16 copy, padded
+    with zero columns to a multiple of 8 (`scan_operands`).
     `bucket_l`, `tile_size`, `query_block` override the automatic shapes
     and `summary_bytes` bounds the phase-A summary (the query batch is
     chunked past it). Phase B is an exact top-`rerank` where the JAX
@@ -260,8 +309,7 @@ def fused_knn(
     b = queries.shape[0]
     r = max(rerank, k)
     n_limit = n if n_valid is None else int(n_valid)
-    native_int = dataset.dtype in (torch.uint8, torch.int8) and d <= _NATIVE_INT_MAX_D
-    ds_bf = dataset if native_int else dataset.to(torch.bfloat16)
+    ds_bf, q_bf = scan_operands(dataset, queries)
 
     L, t, qb, qc = _pick_shapes(
         n, b, d, ds_bf.element_size(), _tile_request(tile_size, bucket_l),
@@ -271,11 +319,10 @@ def fused_knn(
     # the norms come from the bf16-ROUNDED rows the kernel's dots see, so
     # the key ranks distances to one consistent set of vectors
     if metric == MetricType.L2:
-        pen = squared_norms(ds_bf)
+        pen = squared_norms(ds_bf[:, :d])
     else:
         pen = torch.zeros(n, dtype=torch.float32, device=dataset.device)
     nlim = min(n_limit, n)
-    q_bf = queries.to(torch.bfloat16)
 
     out_d, out_i = [], []
     for lo in range(0, b, qc):
@@ -302,4 +349,4 @@ def fused_knn(
     return torch.cat(out_d), torch.cat(out_i)
 
 
-__all__ = ["fused_knn", "scan_buckets", "scan_buckets_plain", "scan_variant"]
+__all__ = ["fused_knn", "scan_buckets", "scan_buckets_plain", "scan_operands", "scan_variant"]

@@ -21,7 +21,7 @@ from flatnav_tpu_torch.ops import MetricType, brute_force_knn, fused_knn
 from flatnav_tpu_torch.ops.distances import squared_norms
 from flatnav_tpu_torch.ops.fused_scan import (
     _L, _QB, _ROWS_BYTES, _SUMMARY_BYTES, _TILE, _pick_shapes, _round_up,
-    scan_buckets, scan_variant,
+    scan_buckets, scan_buckets_plain, scan_operands, scan_variant,
 )
 
 SHAPES = dict(bucket_l=4, tile_size=2048, query_block=8, rerank=32)
@@ -170,14 +170,18 @@ def test_plain_scan_is_the_strided_bucket_min(rng, metric):
     (torch.bfloat16, 128, 16, "wgmma"), (torch.bfloat16, 64, 16, "wgmma"),
     (torch.bfloat16, 384, 16, "wgmma"), (torch.bfloat16, 136, 16, "wgmma"),
     (torch.bfloat16, 37, 16, "mma"), (torch.bfloat16, 56, 16, "mma"),
-    (torch.bfloat16, 392, 16, "mma"), (torch.bfloat16, 132, 16, "mma"),
+    (torch.bfloat16, 392, 16, "wgmma_wide"), (torch.bfloat16, 132, 16, "mma"),
     (torch.bfloat16, 128, 512, "mma"), (torch.bfloat16, 128, 1, "wgmma"),
     (torch.uint8, 128, 16, "mma"), (torch.int8, 128, 16, "mma"),
+    (torch.bfloat16, 960, 16, "wgmma_wide"), (torch.bfloat16, 1024, 16, "wgmma_wide"),
+    (torch.bfloat16, 1032, 16, "mma"), (torch.bfloat16, 964, 16, "mma"),
+    (torch.bfloat16, 104, 16, "wgmma"), (torch.bfloat16, 960, 512, "mma"),
 ])
 @pytest.mark.parametrize("s_blocks", [1, 3])
 def test_scan_variant_is_chosen_by_shape(dtype, d, L, want, s_blocks):
     # the main path (bf16, d=128) and the 1M scan take the TMA/wgmma
-    # variant; 8-bit rows, widths TMA cannot stride and L past eight bits
+    # variant, gist's d=960 its clustered wide form; 8-bit rows against bf16
+    # queries, widths TMA cannot stride, d past 1024 and L past eight bits
     # take the mma.sync one. T = 128 * s_blocks * L: S = T/L is whole
     # 128-bucket tiles
     t = 128 * s_blocks * L
@@ -193,3 +197,89 @@ def test_scan_variant_needs_whole_bucket_tiles(t, L):
     rows = torch.zeros((4096, 128), dtype=torch.bfloat16)
     q = torch.zeros((8, 128), dtype=torch.bfloat16)
     assert scan_variant(q, rows, torch.zeros(rows.shape[0]), t, L) == "mma"
+
+
+@pytest.mark.parametrize("dtype,qdtype,d,L,want", [
+    (torch.uint8, torch.uint8, 128, 16, "wgmma_int8"), (torch.int8, torch.int8, 128, 16, "wgmma_int8"),
+    (torch.uint8, torch.uint8, 64, 256, "wgmma_int8"), (torch.int8, torch.int8, 256, 1, "wgmma_int8"),
+    (torch.uint8, torch.uint8, 16, 16, "wgmma_int8"),
+    (torch.uint8, torch.uint8, 136, 16, "mma"),   # rows of 136 bytes: TMA cannot stride them
+    (torch.uint8, torch.uint8, 264, 16, "mma"),   # past d = 256 the sums may leave 2^24
+    (torch.uint8, torch.uint8, 128, 512, "mma"),  # L past eight bits
+    (torch.uint8, torch.int8, 128, 16, "mma"),    # queries of another 8-bit type
+    (torch.int8, torch.uint8, 128, 16, "mma"),
+])
+def test_scan_variant_takes_integer_wgmma_for_8bit_queries(dtype, qdtype, d, L, want):
+    t = 128 * L
+    rows = torch.zeros((4 * t, d), dtype=dtype)
+    q = torch.zeros((8, d), dtype=qdtype)
+    assert scan_variant(q, rows, torch.zeros(rows.shape[0]), t, L) == want
+
+
+@pytest.mark.parametrize("d", [100, 132, 960, 64])
+def test_scan_operands_pad_a_bf16_copy_to_a_multiple_of_8(rng, d):
+    data = torch.from_numpy(rng.standard_normal((300, d)).astype(np.float32))
+    q = torch.from_numpy(rng.standard_normal((7, d)).astype(np.float32))
+    rows, qb = scan_operands(data, q)
+    dp = _round_up(d, 8)
+    assert rows.dtype == qb.dtype == torch.bfloat16
+    assert rows.shape == (300, dp) and qb.shape == (7, dp)
+    assert torch.equal(rows[:, :d], data.to(torch.bfloat16)) and not rows[:, d:].any()
+    assert torch.equal(qb[:, :d], q.to(torch.bfloat16)) and not qb[:, d:].any()
+
+
+@pytest.mark.parametrize("qdtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int8])
+def test_scan_operands_keep_8bit_tables_and_their_own_queries(rng, dtype, qdtype):
+    data = torch.from_numpy(rng.integers(0, 100, (300, 128))).to(dtype)
+    q = torch.from_numpy(rng.integers(0, 100, (7, 128))).to(qdtype)
+    rows, qk = scan_operands(data, q)
+    assert rows is data
+    assert qk.dtype == (qdtype if qdtype == dtype else torch.bfloat16)
+    assert torch.equal(qk.to(torch.float32), q.to(torch.float32))
+
+
+@pytest.mark.parametrize("metric", [MetricType.L2, MetricType.IP])
+@pytest.mark.parametrize("d", [100, 132])
+def test_padded_width_matches_jax(rng, d, metric):
+    # angular's d=100 (and 132): the bf16 copy is padded to a multiple of 8
+    data, q = clustered(4000, d, 24)
+    if metric == MetricType.IP:
+        data = data / np.linalg.norm(data, axis=1, keepdims=True)
+        q = q / np.linalg.norm(q, axis=1, keepdims=True)
+    k = 10
+    (jd, ji), (td, ti) = _both(data, q, k, metric, **SHAPES)
+    _, truth = brute_force_knn(torch.from_numpy(data), torch.from_numpy(q), k, metric)
+    assert (ti == ji).mean() >= 0.99
+    shared = ti == ji
+    np.testing.assert_allclose(td[shared], jd[shared], rtol=1e-6, atol=1e-6)
+    assert _recall(ti, truth) >= _recall(ji, truth) - 0.005
+
+
+@pytest.mark.parametrize("metric", [MetricType.L2, MetricType.IP])
+@pytest.mark.parametrize("dtype,d", [(np.uint8, 128), (np.int8, 128), (np.uint8, 64), (np.int8, 256)])
+def test_8bit_queries_of_an_8bit_table_identical_to_jax(rng, dtype, d, metric):
+    # the "wgmma_int8" shapes: queries keep the table's type
+    lo, hi = (0, 256) if dtype == np.uint8 else (-128, 128)
+    data = rng.integers(lo, hi, (3000, d)).astype(dtype)
+    q = rng.integers(lo, hi, (8, d)).astype(dtype)
+    (jd, ji), (td, ti) = _both(data, q, 5, metric, **SHAPES)
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_array_equal(td, jd)
+    (jd, ji), (td, ti) = _both(data, q, 5, metric, exact_rerank=False, **SHAPES)
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_array_equal(td, jd)
+
+
+@pytest.mark.parametrize("metric", [MetricType.L2, MetricType.IP])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int8])
+def test_plain_scan_with_8bit_queries_equals_bf16_queries(rng, dtype, metric):
+    n, d, nlim, t, L = 2000, 128, 1900, 512, 4
+    lo, hi = (0, 256) if dtype == torch.uint8 else (-128, 128)
+    rows = torch.from_numpy(rng.integers(lo, hi, (n, d))).to(dtype)
+    q = torch.from_numpy(rng.integers(lo, hi, (9, d))).to(dtype)
+    pen = squared_norms(rows) if metric == MetricType.L2 else torch.zeros(n)
+    m8, i8 = scan_buckets_plain(q, rows, pen, nlim, t, L)
+    mb, ib = scan_buckets_plain(q.to(torch.bfloat16), rows, pen, nlim, t, L)
+    assert torch.equal(m8, mb) and torch.equal(i8, ib)
+    assert torch.equal(scan_buckets(q, rows, pen, nlim, t, L)[0], m8)  # the CPU wrapper

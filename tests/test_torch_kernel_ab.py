@@ -93,3 +93,24 @@ def test_this_checkouts_entries_are_readable():
 def test_main_needs_a_card(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert kernel_ab.main(["--baseline", str(tmp_path)]) == 2
+
+
+def test_this_checkouts_k1_entry_takes_the_query_type():
+    # the entry kernel_ab calls this checkout's baselines through, and the
+    # names the north-star cases pass (the parent's entry lacks q_type)
+    src = (_build.CSRC / "fused_scan.cu").read_text()
+    entry = kernel_ab.BaseEntry(_Lib(), src, "fused_scan_launch")
+    assert entry.names == ["q", "q_type", "rows", "row_type", "pen", "qc", "n", "d", "nlim",
+                           "t", "L", "nb", "variant", "out_min", "out_id", "stream"]
+    assert set(kernel_ab.K1_CASES) == {"1M", "path", "gist", "angular", "u8-10M", "u8-100M"}
+
+
+def test_scan_bound_counts_8bit_products_at_the_int8_rate():
+    from flatnav_tpu_torch.bench.measure import BF16_FLOP_PER_S, INT8_OP_PER_S, scan_bound
+
+    qc, n, d, nb = 4096, 10_000_000, 128, 10_000_000 // 128
+    ms8, by8 = scan_bound(qc, n, d, nb, row_bytes=1, q_bytes=1)
+    assert by8 == "operations" and ms8 == pytest.approx(2 * qc * n * d / INT8_OP_PER_S * 1e3)
+    ms_bf, _ = scan_bound(qc, n, d, nb, row_bytes=1)  # bf16 queries: bf16 products
+    assert ms_bf == pytest.approx(2 * qc * n * d / BF16_FLOP_PER_S * 1e3)
+    assert ms8 == pytest.approx(5.2985, abs=1e-4)  # the 10M cell's bound

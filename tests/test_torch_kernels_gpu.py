@@ -8,9 +8,9 @@ with a card and no JAX it runs without the suite's conftest:
 
 K2 and 8-bit K1 must be bit-equal to the plain version. bf16 K1 sums its
 products in another order than cuBLAS, so its minima agree within 1e-5 of
-the largest key magnitude and its ids on >= 99% of buckets. K1 has two
-variants chosen by shape ("wgmma" and "mma"); each case states which one
-it must take.
+the largest key magnitude and its ids on >= 99% of buckets. K1 has four
+variants chosen by shape and type ("wgmma", "wgmma_wide", "wgmma_int8" and
+"mma"); each case states which one it must take.
 
 The product-quantized index and the graph reordering hold no kernel of their
 own; their cases run the same call on the card and with device="cpu" at a
@@ -24,7 +24,8 @@ import torch
 
 import flatnav_tpu_torch
 from flatnav_tpu_torch.ops.distances import MetricType, brute_force_knn, squared_norms
-from flatnav_tpu_torch.ops.fused_scan import scan_buckets, scan_buckets_plain
+from flatnav_tpu_torch.ops import fused_scan
+from flatnav_tpu_torch.ops.fused_scan import fused_knn, scan_buckets, scan_buckets_plain, scan_operands
 from flatnav_tpu_torch.ops.gather_distance import gather_distances, gather_distances_plain
 from flatnav_tpu_torch.quantization import PQIndex, ProductQuantizer, pack_codes_4bit, pack_codes_lanes
 from flatnav_tpu_torch.quantization.pq import PQCodebook, pq_scan_knn
@@ -116,14 +117,14 @@ def test_gather_distances_build_wave_width(cuda, rng, c):
     assert torch.equal(gather_distances(v, i, q), gather_distances_plain(v, i, q))
 
 
-def _scan_case(rng, cuda, n, d, qc, dtype):
+def _scan_case(rng, cuda, n, d, qc, dtype, qdtype=torch.bfloat16):
     if dtype == torch.bfloat16:
         rows = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(cuda, dtype)
         q = torch.from_numpy(rng.standard_normal((qc, d)).astype(np.float32)).to(cuda, dtype)
     else:
         lo, hi = (0, 256) if dtype == torch.uint8 else (-128, 128)
         rows = torch.from_numpy(rng.integers(lo, hi, (n, d)).astype(np.int16)).to(cuda, dtype)
-        q = torch.from_numpy(rng.integers(lo, hi, (qc, d)).astype(np.float32)).to(cuda, torch.bfloat16)
+        q = torch.from_numpy(rng.integers(lo, hi, (qc, d)).astype(np.int16)).to(cuda, qdtype)
     return rows, q
 
 
@@ -163,11 +164,117 @@ def test_scan_buckets_wgmma_shapes(cuda, rng, d, t, L):
     _check_scan(q, rows, squared_norms(rows), nlim, t, L, "wgmma")
 
 
-@pytest.mark.parametrize("d", [40, 56, 392])
+@pytest.mark.parametrize("d", [40, 56, 1032])
 def test_scan_buckets_other_bf16_widths_take_mma(cuda, rng, d):
     n, nlim, qc, t, L = 5000, 4900, 70, 2048, 16
     rows, q = _scan_case(rng, cuda, n, d, qc, torch.bfloat16)
     _check_scan(q, rows, squared_norms(rows), nlim, t, L, "mma")
+
+
+#: (T, L) of the new variants' cases: one slice, the default, eight bits of slices
+NEW_TL = [(256, 1), (2048, 16), (32768, 256)]
+
+
+@pytest.mark.parametrize("t,L", NEW_TL)
+@pytest.mark.parametrize("d", [392, 960, 1024])
+def test_scan_buckets_wgmma_wide(cuda, rng, d, t, L):
+    # n not a multiple of T, n_valid < N, and 300 queries: not a multiple of
+    # a block's 64, nor of a cluster's 128 (the last cluster's second block
+    # holds no query)
+    n, nlim, qc = 40_037, 39_000, 300
+    rows, q = _scan_case(rng, cuda, n, d, qc, torch.bfloat16)
+    _check_scan(q, rows, squared_norms(rows), nlim, t, L, "wgmma_wide")
+
+
+@pytest.mark.parametrize("t,L", NEW_TL)
+@pytest.mark.parametrize("d", [100, 104])
+def test_scan_buckets_padded_width_takes_wgmma(cuda, rng, d, t, L):
+    # angular's d=100 reaches the kernel as fused_knn pads it: d=104
+    n, nlim, qc = 40_037, 39_000, 300
+    rows, q = _scan_case(rng, cuda, n, d, qc, torch.bfloat16)
+    rows, q = scan_operands(rows, q)
+    assert rows.shape[1] == 104
+    _check_scan(q, rows, squared_norms(rows[:, :d]), nlim, t, L, "wgmma")
+
+
+@pytest.mark.parametrize("metric", [MetricType.L2, MetricType.IP])
+@pytest.mark.parametrize("t,L", NEW_TL)
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int8])
+def test_scan_buckets_wgmma_int8(cuda, rng, dtype, d, t, L, metric):
+    n, nlim, qc = 40_037, 39_000, 300
+    rows, q = _scan_case(rng, cuda, n, d, qc, dtype, qdtype=dtype)
+    pen = squared_norms(rows) if metric == MetricType.L2 else torch.zeros(n, device=cuda)
+    _check_scan(q, rows, pen, nlim, t, L, "wgmma_int8")  # bit-equal
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int8])
+def test_scan_buckets_bf16_queries_of_8bit_rows_take_mma(cuda, rng, dtype):
+    rows, q = _scan_case(rng, cuda, 5000, 128, 70, dtype)
+    _check_scan(q, rows, squared_norms(rows), 4900, 2048, 16, "mma")
+
+
+@pytest.mark.parametrize("variant,dtype,qdtype,d,t,L", [
+    ("wgmma_wide", torch.bfloat16, torch.bfloat16, 128, 2048, 16),
+    ("wgmma_wide", torch.bfloat16, torch.bfloat16, 1032, 2048, 16),
+    ("wgmma", torch.bfloat16, torch.bfloat16, 960, 2048, 16),
+    ("wgmma", torch.bfloat16, torch.bfloat16, 100, 2048, 16),
+    ("wgmma_int8", torch.uint8, torch.uint8, 264, 2048, 16),
+    ("wgmma_int8", torch.uint8, torch.uint8, 136, 2048, 16),
+    ("wgmma_int8", torch.uint8, torch.bfloat16, 128, 2048, 16),
+    ("wgmma_int8", torch.bfloat16, torch.bfloat16, 128, 2048, 16),
+    ("wgmma_int8", torch.uint8, torch.uint8, 128, 2048 * 32, 512),
+    ("mma", torch.uint8, torch.uint8, 128, 2048, 16),
+])
+def test_scan_launch_outside_a_rule_raises(cuda, rng, monkeypatch, variant, dtype, qdtype, d, t, L):
+    # the C entry refuses the shape or type, and the wrapper raises; nothing
+    # falls back to another variant
+    rows, q = _scan_case(rng, cuda, 3000, d, 40, dtype, qdtype=qdtype)
+    monkeypatch.setattr(fused_scan, "scan_variant", lambda *a: variant)
+    if variant == "mma":  # the wrapper widens 8-bit queries for "mma": call the entry
+        rc = fused_scan._lib()(
+            q.data_ptr(), 1, rows.data_ptr(), 1, squared_norms(rows).data_ptr(), 40, 3000, d,
+            3000, t, L, -(-3000 // t) * (t // L), 0, 0, 0,
+            torch.cuda.current_stream().cuda_stream)
+        assert rc == 1  # cudaErrorInvalidValue
+        return
+    before = dict(scan_buckets.variants)
+    with pytest.raises(RuntimeError, match="cudaError_t 1"):
+        scan_buckets(q, rows, squared_norms(rows), 3000, t, L)
+    assert scan_buckets.variants == before
+
+
+@pytest.mark.parametrize("case", ["angular d=100 IP", "uint8 d=128", "int8 d=128", "bf16 d=960"])
+def test_fused_knn_on_card_matches_cpu(cuda, rng, case):
+    # the north-star shapes through fused_knn: the card against the CPU's
+    # plain scan on the same inputs
+    n, nq, k = 20_000, 96, 10
+    metric = MetricType.IP if "IP" in case else MetricType.L2
+    if "8" in case.split()[0]:
+        dtype = torch.uint8 if case.startswith("uint8") else torch.int8
+        lo, hi = (0, 256) if dtype == torch.uint8 else (-128, 128)
+        data = torch.from_numpy(rng.integers(lo, hi, (n, 128)).astype(np.int16)).to(dtype)
+        q = torch.from_numpy(rng.integers(lo, hi, (nq, 128)).astype(np.int16)).to(dtype)
+        want = "wgmma_int8"
+    else:
+        d = 100 if "100" in case else 960
+        data = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
+        q = torch.from_numpy(rng.standard_normal((nq, d)).astype(np.float32))
+        if metric == MetricType.IP:
+            data = data / data.norm(dim=1, keepdim=True)
+            q = q / q.norm(dim=1, keepdim=True)
+        want = "wgmma" if d == 100 else "wgmma_wide"
+    before = dict(scan_buckets.variants)
+    gd, gi = fused_knn(data.to(cuda), q.to(cuda), k, metric)
+    assert scan_buckets.variants[want] > before[want]
+    assert sum(scan_buckets.variants.values()) - sum(before.values()) == scan_buckets.variants[want] - before[want]
+    cd, ci = fused_knn(data, q, k, metric)
+    if data.dtype != torch.float32:
+        assert torch.equal(gi.cpu(), ci) and torch.equal(gd.cpu(), cd)
+    else:
+        same = gi.cpu() == ci
+        assert float(same.float().mean()) >= 0.99
+        torch.testing.assert_close(gd.cpu()[same], cd[same], rtol=1e-5, atol=1e-5)
 
 
 def test_lifecycle_on_card(cuda, tmp_path):
