@@ -20,20 +20,29 @@ Phases, in order; any failure raises and the script exits nonzero:
      multiple of the tile and n_valid < N; each case must take the variant
      the wrapper's rule names: "wgmma" for bf16 at 64 <= d <= 384 (d=104
      included), "wgmma_wide" at d=960, "wgmma_int8" for 8-bit queries of
-     8-bit rows, "mma" for the rest.
+     8-bit rows, "mma" for the rest. K3 select_k bit-equal (keys by their
+     bits, ids) on K3_CASES: k in {1, 7, 10, 32, 50, 64, 1024, K_MAX}, rows
+     of 7 to 390,656 columns, B from 1 to 8,192, full / row / implicit ids
+     with column windows, keys with +-0, +-inf and NaN of both signs, whole
+     rows of +inf, integer keys with thousands of ties, repeated pairs.
   3. the main path at full width, the README configuration: clustered data
      (seed 0x5EED), N=100,000, d=128 float32, L2, M=32, ef_construction=100,
      4,096 queries, K=10: create -> add -> search(ef_search=192) ->
      search_exact(rerank=0 / 32 / 32 without exact rerank) -> save ->
      load_index -> search (must be identical). Kernel launch counters are
      zeroed just before and read just after; recall@10 of every engine is
-     measured against the port's brute_force_knn. Each kernel is then held
+     measured against the port's brute_force_knn, run inside that window.
+     K3 must have launched in brute_force_knn, in the build and in
+     search_exact (counts by step printed). Each kernel is then held
      against its plain version on the arguments the path gave it (a search
      hop and a build wave of B=8192, C=1024 for K2, the first scan of
-     search_exact for K1), and K2 is timed at both.
+     search_exact for K1, its first phase-B selection for K3), and K2 is
+     timed at both.
   4. the scan at SIFT1M scale: search_exact(rerank=32) and fused_knn over a
      1M x 128 float32 clustered table with B=4096, with recall and K1 time;
-     then the stage profiler's stages (bench/profile_fused_stages.py:
+     K3 at phase B of that scan (keys [4096, 62592] -> 32, ids read),
+     bit-equal and timed beside its plain version, torch.topk of the float
+     keys and its bound; then the stage profiler's stages (bench/profile_fused_stages.py:
      matmul, phaseA = K1', phaseAB, norerank, full, gather) on the same
      table, with K1's launches counted over them.
   5. reorder / import, on the main path's index: search(ef_search=192) is
@@ -215,6 +224,115 @@ def k2_against_plain(vectors, ids, queries, metric, tag) -> float:
     return float((got - want).abs().max())
 
 
+def k3_against_plain(keys, k, ids=None, id_base=0, cols=None, tag="") -> float:
+    """K3 must be bit-equal to its plain version: ids equal and keys equal
+    in their bits (so NaN keys too). Returns the max abs error over the
+    finite keys (0 when bit-equal)."""
+    import torch
+
+    from flatnav_tpu_torch.ops.select_k import select_k, select_k_plain
+
+    before = select_k.launches
+    got = select_k(keys, k, ids=ids, id_base=id_base, cols=cols)
+    want = select_k_plain(keys, k, ids=ids, id_base=id_base, cols=cols)
+    torch.cuda.synchronize()
+    check(select_k.launches > before, f"K3 launched {tag}")
+    check(torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+          and torch.equal(got[1], want[1]), f"K3 bit-equal {tag}")
+    fin = torch.isfinite(want[0])
+    return float((got[0][fin] - want[0][fin]).abs().max()) if bool(fin.any()) else 0.0
+
+
+#: K3's cases in phase 2: (B, W, k, ids, keys). The shapes of its callers
+#: (phase B at 1M x 128 and at 100M uint8, a fast_knn and a brute_force_knn
+#: tile with their column windows, the build's intra-wave block, a merge of
+#: two r-wide lists, a PQ tile at the widest rerank), one long row, the
+#: largest k, and rows of special keys.
+K3_CASES = [
+    (4096, 62_592, 32, "full", "normal"),
+    (512, 390_656, 32, "full", "ties"),
+    (1, 390_656, 1024, "implicit", "normal"),
+    (4096, 131_072, 32, "implicit", "normal"),
+    (4096, 65_536, 10, "implicit", "ties"),
+    (8192, 8192, 64, "broadcast", "masked"),
+    (4096, 64, 32, "full", "normal"),
+    (64, 32_768, 1024, "implicit", "ties"),
+    (16, 100_000, "K_MAX", "implicit", "normal"),
+    (4096, 1000, 64, "full", "inf"),
+    (1, 5000, 10, "full", "nan"),
+    (100, 3000, 50, "full", "dup"),
+    (37, 7, 1, "broadcast", "special"),
+    (1, 7, 7, "implicit", "special"),
+]
+
+
+def k3_case(b, w, ids_kind, keys_kind, seed):
+    """Keys and ids of one K3 case, made on the card from `seed`:
+    normal keys with +-0, +-inf and NaN of both signs at 1% of the places;
+    integer-valued keys in [0, 64) (8-bit tables: thousands of exact ties);
+    the build's masked block (key +inf unless column < row); whole rows of
+    +inf; NaN of both signs; integer keys in [0, 4) with ids in [0, 100)
+    (repeated pairs); only special values. -> (keys, ids or None, id_base,
+    cols)"""
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    special = torch.tensor([0.0, -0.0, float("inf"), -float("inf"), float("nan"), 1.0, -1.0],
+                           device=dev)
+    special = torch.cat([special, -special[4:5]])  # a NaN with the sign bit set
+    if keys_kind in ("normal", "masked"):
+        keys = torch.randn((b, w), device=dev, generator=g)
+        if keys_kind == "masked":
+            col = torch.arange(w, device=dev)
+            keys = torch.where(col[None, :] < torch.arange(b, device=dev)[:, None] % w, keys,
+                               float("inf"))
+        else:
+            at = torch.randint(0, b * w, (max(1, b * w // 100),), device=dev, generator=g)
+            keys.view(-1)[at] = special[torch.randint(0, len(special), at.shape, device=dev,
+                                                      generator=g)]
+    elif keys_kind == "ties":
+        keys = torch.randint(0, 64, (b, w), device=dev, generator=g).float()
+    elif keys_kind == "dup":
+        keys = torch.randint(0, 4, (b, w), device=dev, generator=g).float()
+    elif keys_kind == "inf":
+        keys = torch.full((b, w), float("inf"), device=dev)
+    elif keys_kind == "nan":
+        keys = torch.full((b, w), float("nan"), device=dev)
+        keys[:, ::2] = -keys[:, ::2]
+    else:
+        keys = special[torch.randint(0, len(special), (b, w), device=dev, generator=g)]
+    ids, id_base, cols = None, 0, None
+    if ids_kind == "full":
+        hi = 100 if keys_kind == "dup" else (1 << 31) - 1
+        ids = torch.randint(0, hi, (b, w), device=dev, generator=g, dtype=torch.int32)
+    elif ids_kind == "broadcast":
+        ids = torch.randperm(w, device=dev, generator=g).to(torch.int32)[None, :]
+    else:
+        id_base = 1_000_000
+        cols = (w // 100, w - w // 7) if w > 100 else None
+    return keys, ids, id_base, cols
+
+
+def phase_k3():
+    """K3 against its plain version on every case of K3_CASES. -> max abs error"""
+    import torch
+
+    from flatnav_tpu_torch.ops.select_k import K_MAX
+
+    err = 0.0
+    for i, (b, w, k, ids_kind, keys_kind) in enumerate(K3_CASES):
+        k = K_MAX if k == "K_MAX" else k
+        keys, ids, id_base, cols = k3_case(b, w, ids_kind, keys_kind, seed=i)
+        err = max(err, k3_against_plain(keys, k, ids, id_base, cols,
+                                         f"B={b} W={w} k={k} {ids_kind} ids, {keys_kind} keys"))
+        del keys, ids
+    torch.cuda.empty_cache()
+    print(f"K3 select_k: bit-equal to the plain version on {len(K3_CASES)} cases "
+          f"(k up to K_MAX={K_MAX}, W from 7 to 390,656, B from 1 to 8,192)")
+    return err
+
+
 #: K2's widths in phase 2: angular's d=100 and gist's d=960 among them
 K2_WIDTHS = (7, 37, 100, 128, 960)
 
@@ -286,12 +404,11 @@ def phase_main_path():
     from flatnav_tpu_torch.ops import fused_scan as fused_mod
     from flatnav_tpu_torch.ops.fused_scan import scan_buckets
     from flatnav_tpu_torch.ops.gather_distance import gather_distances
+    from flatnav_tpu_torch.ops.select_k import select_k
     from flatnav_tpu_torch.utils.profiling import device_memory_stats
 
     n, d, m, efc, nq, k, ef = 100_000, 128, 32, 100, 4096, 10, 192
     data, queries = clustered(n, d, nq, seed=0x5EED)
-    _, gt = brute_force_knn(torch.from_numpy(data).cuda(), torch.from_numpy(queries).cuda(), k)
-    gt = gt.cpu().numpy()
     # keep the 88th build-wave call (B=8192, C=1024; about half of the
     # build's, in its 7th wave: the first waves score a nearly empty graph),
     # the 4th full-width hop of the graph search (its first hops start from
@@ -301,13 +418,22 @@ def phase_main_path():
                             nth=88)
     hop_rec = CallRecorder(wave_rec, lambda v, ids, q, mt: ids.shape[1] == 16 * m, nth=4)
     scan_rec = CallRecorder(scan_buckets)
+    # phase B's first selection (K3) of search_exact(rerank=32)
+    phase_b_rec = CallRecorder(fused_mod.smallest_k)
     search_mod.gather_distances = hop_rec
     fused_mod.scan_buckets = scan_rec
+    fused_mod.smallest_k = phase_b_rec
     out = {}
+    k3 = {}  # K3 launches by step of the path
     try:
         gather_distances.launches = 0
         scan_buckets.launches = 0
         scan_buckets.variants = dict.fromkeys(scan_buckets.variants, 0)
+        select_k.launches = 0
+        # the ground truth of every recall below: brute_force_knn (K3)
+        _, gt = brute_force_knn(torch.from_numpy(data).cuda(), torch.from_numpy(queries).cuda(), k)
+        gt = gt.cpu().numpy()
+        k3["brute_force_knn"] = select_k.launches
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -317,6 +443,7 @@ def phase_main_path():
         index.add(data, ef_construction=efc)
         torch.cuda.synchronize()
         out["build_s"] = time.perf_counter() - t0
+        k3["build"] = select_k.launches - k3["brute_force_knn"]
         out["build_peak"] = device_memory_stats()["peak_bytes_in_use"]
         hop_rec.reset()  # keep a query hop, not a build hop
 
@@ -330,9 +457,11 @@ def phase_main_path():
             return dist, lab
 
         d1, l1 = run("graph", lambda: index.search(queries, K=k, ef_search=ef))
+        before = select_k.launches
         run("exact", lambda: index.search_exact(queries, K=k))
         run("fused", lambda: index.search_exact(queries, K=k, rerank=32))
         run("fusednr", lambda: index.search_exact(queries, K=k, rerank=32, exact_rerank=False))
+        k3["search_exact"] = select_k.launches - before
         with tempfile.TemporaryDirectory(dir=REPO) as tmp:
             path = os.path.join(tmp, "smoke_index.npz")
             index.save(path)
@@ -341,10 +470,12 @@ def phase_main_path():
         torch.cuda.synchronize()
         launches = {"gather_distances": gather_distances.launches,
                     "scan_buckets": scan_buckets.launches,
-                    "scan_buckets variants": dict(scan_buckets.variants)}
+                    "scan_buckets variants": dict(scan_buckets.variants),
+                    "select_k": select_k.launches, "select_k by step": k3}
     finally:
         search_mod.gather_distances = gather_distances
         fused_mod.scan_buckets = scan_buckets
+        fused_mod.smallest_k = phase_b_rec.fn
     check(np.array_equal(l1, l2) and np.array_equal(d1, d2), "reloaded search identical")
     print(f"main path: N={n} d={d} M={m} ef_construction={efc} build {out['build_s']:.2f} s, "
           f"peak device memory {out['build_peak'] / 1e6:.1f} MB, "
@@ -354,13 +485,16 @@ def phase_main_path():
         print(f"  {name}: recall@10 {r['recall']:.4f}  qps {r['qps']:.1f}  ({r['s']:.3f} s)")
     print(f"  launches on the main path: {launches}")
     check(launches["gather_distances"] > 0 and launches["scan_buckets"] > 0, "kernel launches")
+    check(all(v > 0 for v in k3.values()),
+          "K3 launched in brute_force_knn, the build and search_exact")
     check(launches["scan_buckets variants"]["wgmma"] == launches["scan_buckets"],
           "the main path's K1 takes the wgmma variant alone")
     check(out["exact"]["recall"] == 1.0, "exact recall == 1.0")
     check(out["fused"]["recall"] >= 0.98, "fused recall >= 0.98")
     check(out["graph"]["recall"] >= 0.90, "graph recall >= 0.90")
-    check(hop_rec.args is not None and wave_rec.args is not None and scan_rec.args is not None,
-          "a search hop, a build wave and a scan call were recorded")
+    check(hop_rec.args is not None and wave_rec.args is not None and scan_rec.args is not None
+          and phase_b_rec.args is not None,
+          "a search hop, a build wave, a scan call and a phase-B selection were recorded")
     # each kernel against its plain version at the shapes the path gave it
     k2_err = k2_against_plain(*hop_rec.args, "main-path hop")
     k2_err = max(k2_err, k2_against_plain(*wave_rec.args, "main-path build wave"))
@@ -370,10 +504,13 @@ def phase_main_path():
           f"{tuple(wave_rec.args[1].shape)} bit-equal; "
           f"K1 q {tuple(q_bf.shape)} rows {tuple(rows.shape)} {rows.dtype} T={t} L={L} "
           f"max abs err {k1_err:g}")
+    bmin, bids, r = phase_b_rec.args
+    k3_err = k3_against_plain(bmin, r, ids=bids, tag="main-path phase B")
+    print(f"  K3 at the main path's phase B: keys {tuple(bmin.shape)} -> {r}, ids read, bit-equal")
     path = {"index": index, "data": data, "queries": queries, "gt": gt, "labels": l1,
             "dists": d1, "recall": out["graph"]["recall"], "k": k, "ef": ef,
             "build_peak": out["build_peak"]}
-    return launches, hop_rec.args, wave_rec.args, k1_err, k2_err, path
+    return launches, hop_rec.args, wave_rec.args, k1_err, k2_err, k3_err, path
 
 
 def k2_timing(call, what):
@@ -458,6 +595,7 @@ def phase_scan_1m():
     print(f"K1 time {ms:.3f} ms, plain {plain_ms:.3f} ms, bf16 matmul yardstick "
           f"{lib_ms:.3f} ms, bound {bound:.3f} ms ({by})")
     k1 = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+    k3 = k3_timing(q_bf, ds_bf, pen, n, t, L, r=32)
 
     # the stage profiler (K1') on the same table: its phaseA is K1 at these
     # shapes, launched through the tool's own stage functions
@@ -472,7 +610,32 @@ def phase_scan_1m():
           "the stage profiler launched K1's wgmma variant alone")
     k1p = {"ms": stage_ms["phaseA"], "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
            "library_ms": stage_ms["matmul"], "launches": stage_launches}
-    return err, k1, k1p, {"data": data, "ds": ds, "q": q, "gt": gt}
+    return err, k1, k1p, k3, {"data": data, "ds": ds, "q": q, "gt": gt}
+
+
+def k3_timing(q_bf, ds_bf, pen, n, t, L, r):
+    """K3 at phase B of the 1M scan (the [B, N/L] bucket summary K1 gives,
+    ids read, -> r): bit-equal to its plain version, then its time beside
+    the plain version's, the bound and `torch.topk` of the float keys alone
+    (a yardstick: it fixes no order among ties, so it is not the same
+    function and the port never calls it)."""
+    import torch
+
+    from flatnav_tpu_torch.bench.measure import select_bound, timed
+    from flatnav_tpu_torch.ops.fused_scan import scan_buckets
+    from flatnav_tpu_torch.ops.select_k import select_k, select_k_plain
+
+    bmin, bids = scan_buckets(q_bf, ds_bf, pen, n, t, L)
+    b, nb = bmin.shape
+    k3_against_plain(bmin, r, ids=bids, tag="1M phase B")
+    ms = timed(lambda: select_k(bmin, r, ids=bids), reps=10, warmup=2)
+    plain_ms = timed(lambda: select_k_plain(bmin, r, ids=bids), reps=3, warmup=1)
+    lib_ms = timed(lambda: torch.topk(bmin, r, dim=1, largest=False), reps=5, warmup=1)
+    bound, by = select_bound(b, nb, ids_read=True, k=r)
+    print(f"K3 at 1M phase B, keys [{b}, {nb}] -> {r}, ids read: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"torch.topk yardstick {lib_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+            "library": "torch.topk float keys", "timed_at": {"b": b, "w": nb, "k": r}}
 
 
 #: share of result slots that keep their label across reorder(["gorder",
@@ -639,8 +802,9 @@ def phase_pq_scan(table):
     import torch
 
     from flatnav_tpu_torch.bench.measure import BF16_FLOP_PER_S, F32_FLOP_PER_S, timed
-    from flatnav_tpu_torch.ops.distances import smallest_k
+    from flatnav_tpu_torch.ops.distances import _merge_tile
     from flatnav_tpu_torch.ops.gather_distance import gather_distances
+    from flatnav_tpu_torch.ops.select_k import select_k
     from flatnav_tpu_torch.quantization import ProductQuantizer, pack_codes_4bit, pack_codes_lanes
     from flatnav_tpu_torch.quantization import pq as pq_mod
     from flatnav_tpu_torch.quantization.pq import pq_scan_knn
@@ -710,8 +874,7 @@ def phase_pq_scan(table):
         return onehot.zero_().scatter_(1, codes[start : start + tile].long() + sub_base, 1.0)
 
     key = pq_mod._scan_keys_bf16(t_bf, fill(0))
-    ids = torch.arange(tile, dtype=torch.int32, device=codes.device).expand(b, tile)
-    best = smallest_k(key, ids, rerank)
+    best = select_k(key, rerank)
 
     def per_tile(fn):
         def run():
@@ -725,9 +888,8 @@ def phase_pq_scan(table):
             per_tile(lambda st: pq_mod._scan_keys_bf16(t_bf, onehot)), reps=2, warmup=1),
         "keys, f32 matmul of the rounded operands": timed(
             per_tile(lambda st: pq_mod._scan_keys_f32(t_bf, onehot)), reps=1, warmup=1),
-        "shortlist (smallest_k)": timed(
-            per_tile(lambda st: smallest_k(
-                torch.cat([best[0], key], 1), torch.cat([best[1], ids], 1), rerank)),
+        "shortlist (K3: a tile's r, then the merge)": timed(
+            per_tile(lambda st: _merge_tile(best[0], best[1], key, st, (0, tile))),
             reps=2, warmup=1),
     }
     ops = 2.0 * n * s * nc * b
@@ -1261,6 +1423,7 @@ def main() -> int:
     mark("1 build")
     rng = np.random.default_rng(0xF1A7)
     k2_err, k1_err = phase_kernels(rng)
+    k3_err = phase_k3()
     mark("2 kernels")
     k1 = {"name": "scan_buckets", "route": "cuda", "variant": "wgmma",
           "source": "flatnav_tpu_torch/csrc/fused_scan.cu",
@@ -1271,9 +1434,12 @@ def main() -> int:
     k1p = {"name": "profile_fused_stages phaseA", "route": "cuda", "variant": "wgmma",
            "source": "flatnav_tpu_torch/csrc/fused_scan.cu",
            "replaces": "tools/profile_fused_stages.py:70"}
-    kernels = [k1, k2]
+    k3 = {"name": "select_k", "route": "cuda", "variant": "radix",
+          "source": "flatnav_tpu_torch/csrc/select_k.cu",
+          "replaces": "flatnav_tpu/ops/fused_scan.py:385"}
+    kernels = [k1, k2, k3]
     if not quick:
-        launches, hop, wave, k1_main, k2_main, path = phase_main_path()
+        launches, hop, wave, k1_main, k2_main, k3_main, path = phase_main_path()
         k2.update(k2_timing(hop, "search hop"))
         k2["build_wave"] = k2_timing(wave, "build wave")
         mark("3 main path")
@@ -1294,7 +1460,7 @@ def main() -> int:
         k2["launches_headline"] = head["kernel_launches"]["gather_distances"]
         phase_routed_scan()
         mark("9 routed scan")
-        err_1m, k1_times, k1p_times, table = phase_scan_1m()
+        err_1m, k1_times, k1p_times, k3_times, table = phase_scan_1m()
         mark("4 1M scan")
         k2["launches_pq_raw_rerank"] = phase_pq_scan(table)
         del table
@@ -1331,9 +1497,12 @@ def main() -> int:
         kernels.append(k1p)
         k1["launches"] = launches["scan_buckets"]
         k2["launches"] = launches["gather_distances"]
+        k3.update(k3_times, launches=launches["select_k"],
+                  launches_by_step=launches["select_k by step"])
+        k3_err = max(k3_err, k3_main)
         k1_err = max(k1_err, k1_main, err_1m, k1_shard)
         k2_err = max(k2_err, k2_main, k2_compact, k2_shard)
-    k1["max_abs_err"], k2["max_abs_err"] = k1_err, k2_err
+    k1["max_abs_err"], k2["max_abs_err"], k3["max_abs_err"] = k1_err, k2_err, k3_err
     print(f"seconds by phase: {phase_s}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,7 @@
 """Kernels of this checkout against another version's, alternating on the card.
 
     python -m flatnav_tpu_torch.bench.kernel_ab --baseline DIR [--reps 10] [--cases k2,k1]
+    python -m flatnav_tpu_torch.bench.kernel_ab --cases k3 [--k3 phaseB-1M,...]
 
 DIR holds the other version's `gather_distance.cu` and/or `fused_scan.cu`,
 for example another commit's (`git archive <commit> flatnav_tpu_torch/csrc |
@@ -31,8 +32,15 @@ Cases, at the main path's shapes, the 1M scan's and the north-star shapes:
   with a constant changed (e.g. `wide_scan::CS`) is timed against this one.
 Each line gives the bound (`measure.gather_bound` / `measure.scan_bound`)
 and, for K1, the plain version's time and the time of torch.matmul bf16
-(and torch._int_mm for 8-bit rows) on the same inputs. Needs a CUDA card;
-exits 2 without one.
+(and torch._int_mm for 8-bit rows) on the same inputs.
+
+K3 (`--cases k3`, no baseline: the parent has no such kernel) at its
+callers' shapes (`K3_CASES`, `--k3` picks them): `select_k` held bit-equal
+to `select_k_plain`, then timed twice around `torch.topk` of the float keys
+alone (a yardstick that fixes no order among ties, so not the same
+function), the plain version once, and `measure.select_bound`. The last
+line is every K3 case as one JSON object. Needs a CUDA card; exits 2
+without one.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import hashlib
+import json
 import re
 import subprocess
 import sys
@@ -49,7 +58,7 @@ import numpy as np
 import torch
 
 from flatnav_tpu_torch import _build
-from flatnav_tpu_torch.bench.measure import card, gather_bound, scan_bound, timed
+from flatnav_tpu_torch.bench.measure import card, gather_bound, scan_bound, select_bound, timed
 from flatnav_tpu_torch.ops.distances import squared_norms
 from flatnav_tpu_torch.bench._northstar import int8_operands
 from flatnav_tpu_torch.ops.fused_scan import (
@@ -65,6 +74,7 @@ from flatnav_tpu_torch.ops.gather_distance import (
     gather_distances,
     gather_distances_plain,
 )
+from flatnav_tpu_torch.ops.select_k import _plan, select_k, select_k_plain
 
 _ENTRY = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)')
 _SOURCES = {"k2": ("gather_distance", "gather_distance_launch"),
@@ -268,26 +278,87 @@ def _chunked_int_mm_ms(q8, rows8, reps):
     return timed(run, reps, warmup=1)
 
 
+#: K3 cases: label -> (B, W, k, ids, keys). ids: "full" ([B, W] int32,
+#: read), "row" (one [1, W] row) or "implicit" (start + column, not read);
+#: keys: i.i.d. normal, or integers in [0, 64) ("ties", as 8-bit tables give).
+K3_CASES = {
+    "phaseB-1M": (4096, 62_592, 32, "full", "normal"),  # fused_knn at 1M x 128, T=2048, L=16
+    "phaseB-100M": (512, 390_656, 32, "full", "ties"),  # uint8 100M, qc=512, T=32768, L=256
+    "fast-tile": (4096, 131_072, 32, "implicit", "normal"),  # fast_knn's default tile
+    "fast-tile-262k": (4096, 262_144, 32, "implicit", "normal"),  # profile_scan_bound's
+    "brute-tile": (4096, 65_536, 10, "implicit", "normal"),  # brute_force_knn's tile
+    "pq-tile": (4096, 32_768, 64, "implicit", "normal"),  # pq_scan_knn, rerank 64
+    "pq-tile-1024": (1024, 32_768, 1024, "implicit", "normal"),  # the 100M PQ's widest
+    "build": (8192, 8192, 64, "row", "normal"),  # the wave build's intra-wave block
+    "merge": (4096, 64, 32, "full", "normal"),  # a scan's merge of two r-wide lists
+    "routed": (16384, 196, 8, "row", "normal"),  # routed scan: rows to their 8 nearest cells
+    "B1": (1, 131_072, 32, "implicit", "normal"),  # one query (the latency protocol)
+}
+
+
+def k3_cases(reps: int, names: list[str]) -> list[dict]:
+    out = []
+    for name in names:
+        b, w, k, ids_kind, keys_kind = K3_CASES[name]
+        g = torch.Generator(device="cuda").manual_seed(0)
+        if keys_kind == "ties":
+            keys = torch.randint(0, 64, (b, w), device="cuda", generator=g).float()
+        else:
+            keys = torch.randn((b, w), device="cuda", generator=g)
+        kw = {"id_base": 1_000_000}
+        if ids_kind == "full":
+            kw = {"ids": torch.randint(0, 1 << 30, (b, w), device="cuda", generator=g,
+                                       dtype=torch.int32)}
+        elif ids_kind == "row":
+            kw = {"ids": torch.arange(w, dtype=torch.int32, device="cuda")[None, :]}
+        got, want = select_k(keys, k, **kw), select_k_plain(keys, k, **kw)
+        if not (torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+                and torch.equal(got[1], want[1])):
+            raise RuntimeError(f"K3 {name}: differs from the plain version")
+        times = alternate({"K3": lambda: select_k(keys, k, **kw),
+                           "torch.topk": lambda: torch.topk(keys, k, dim=1, largest=False)}, reps)
+        times["plain"] = [timed(lambda: select_k_plain(keys, k, **kw), reps=1, warmup=1)]
+        bound, by = select_bound(b, w, ids_kind == "full", k)
+        rounds = len(_plan(b, w, k))
+        show(f"K3 {name}: [{b}, {w}] -> {k}, {ids_kind} ids, {keys_kind} keys, {rounds} "
+             f"launch{'es' if rounds > 1 else ''} (bit-equal)", times, bound, by)
+        out.append({"case": name, "b": b, "w": w, "k": k, "ids": ids_kind, "keys": keys_kind,
+                    "launches": rounds, "bound_ms": bound, "bound_by": by,
+                    **{f"{x}_ms": sum(t) / len(t) for x, t in (("k3", times["K3"]),
+                                                               ("topk", times["torch.topk"]),
+                                                               ("plain", times["plain"]))}})
+        del keys, kw, got, want
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--baseline", required=True, type=Path)
+    ap.add_argument("--baseline", type=Path, help="the other version's csrc (k1, k2)")
     ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--cases", default="k2,k1", help="comma-separated: k2, k1")
+    ap.add_argument("--cases", default="k2,k1", help="comma-separated: k2, k1, k3")
     ap.add_argument("--k1", default=",".join(K1_CASES),
                     help=f"comma-separated K1 cases: {', '.join(K1_CASES)}")
+    ap.add_argument("--k3", default=",".join(K3_CASES),
+                    help=f"comma-separated K3 cases: {', '.join(K3_CASES)}")
     args = ap.parse_args(argv)
+    cases = args.cases.split(",")
+    ab = [c for c in cases if c != "k3"]
+    if ab and args.baseline is None:
+        ap.error(f"--cases {','.join(ab)} needs --baseline")
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
-    cases = args.cases.split(",")
-    _build.build([_SOURCES[c][0] for c in cases])
-    base = build_baseline(args.baseline, cases)
+    _build.build([_SOURCES[c][0] for c in ab] + (["select_k"] if "k3" in cases else []))
+    base = build_baseline(args.baseline, ab) if ab else {}
     print(f"{card()}; torch {torch.__version__}; baseline {args.baseline}")
     rng = np.random.default_rng(0)
     if "k2" in cases:
         k2_cases(base["k2"], rng, args.reps)
     if "k1" in cases:
         k1_cases(base["k1"], args.reps, args.k1.split(","))
+    if "k3" in cases:
+        print(json.dumps({"card": card(), "k3": k3_cases(args.reps, args.k3.split(","))}))
     return 0
 
 

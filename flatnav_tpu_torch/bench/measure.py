@@ -2,9 +2,10 @@
 
 `chip_smoke.py`, `bench/profile_fused_stages.py`, `bench/kernel_ab.py` and
 the north-star runners take the card's peaks, their CUDA-event timer, the
-card's name line, the bound of each kernel and `CallRecorder` (a kernel's
-arguments kept from a call on a module's path) from here, so every script
-states the same numbers.
+card's name line, the bound of each kernel (K1 `scan_bound`, K2
+`gather_bound`, K3 `select_bound`) and `CallRecorder` (a kernel's arguments
+kept from a call on a module's path) from here, so every script states the
+same numbers.
 A bound is the larger of the bytes the function must move (each input read
 once, each output written once) over the memory rate and its operations
 over the peak rate for their type.
@@ -72,6 +73,15 @@ def scan_bound(qc: int, n: int, d: int, nb: int, row_bytes: int = 2, q_bytes: in
     nbytes = qc * d * q_bytes + n * d * row_bytes + n * 4 + qc * nb * 8
     rate = INT8_OP_PER_S if row_bytes == q_bytes == 1 else BF16_FLOP_PER_S
     return _bound(nbytes, 2 * qc * n * d, rate)
+
+
+def select_bound(b: int, w: int, ids_read: bool, k: int = 0):
+    """-> (ms, "bytes") of K3 over a [b, w] float32 key matrix: each key read
+    once (4 B), each id too where the ids are a tensor (4 B more; implicit
+    ids are not read), and the [b, k] f32 + i32 result written once. The
+    selection does no arithmetic the peak rates count."""
+    nbytes = b * w * (8 if ids_read else 4) + b * k * 8
+    return _bound(nbytes, 0, BF16_FLOP_PER_S)
 
 
 class CallRecorder:

@@ -12,7 +12,8 @@ attribute the engine's time:
              path
   phaseA     scan_buckets (kernel K1) at the shapes `_pick_shapes` gives, on
              K1's own grid: the [B, N/L] bucket minima and ids
-  phaseAB    phaseA + the exact top-`rerank` shortlist (`smallest_k`)
+  phaseAB    phaseA + the exact top-`rerank` shortlist (`smallest_k`: kernel
+             K3 on the card, ids read)
   norerank   fused_knn(exact_rerank=False): phaseAB + ranking by the keys
   full       fused_knn(exact_rerank=True): + the row gather and exact rescore
   gather     the rerank's row gather + rescore + stable argsort alone, on

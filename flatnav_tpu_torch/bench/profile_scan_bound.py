@@ -12,10 +12,12 @@ row tiles, it times:
 
   matmul   one bf16 product a tile (float32 result) and a running minimum:
            the scan's products with no selection, the yardstick of the bound
-  select   matmul + the port's exact `smallest_k` of the running `rerank`
-           shortlist and each tile's keys: fast_knn's phase 1 without its
-           norms and rerank. It stands where the JAX tool's `approx` stage
-           (approx_min_k a tile) stood; the port has no approximate top-k
+  select   matmul + the port's exact selection as fast_knn takes it: each
+           tile's `rerank` smallest keys (K3 on the card, implicit ids),
+           merged with the running shortlist (K3 over the 2 x rerank):
+           fast_knn's phase 1 without its norms and rerank. It stands where
+           the JAX tool's `approx` stage (approx_min_k a tile) stood; the
+           port's top-k is exact
   fastknn  `fast_knn` whole (bf16 keys, exact shortlist, exact rerank)
   exact    `brute_force_knn` whole (float32 products, top-k a tile)
 
@@ -48,8 +50,8 @@ from flatnav_tpu_torch.ops.distances import (
     MetricType,
     bf16_dot,
     brute_force_knn,
+    _merge_tile,
     fast_knn,
-    smallest_k,
 )
 
 STAGE_NAMES = ("matmul", "select", "fastknn", "exact")
@@ -63,7 +65,6 @@ def stages(vecs: torch.Tensor, q: torch.Tensor, n: int, k: int = 10, tile: int =
     n_tiles = vecs.shape[0] // tile
     vecs_bf, q_bf = vecs.to(torch.bfloat16), q.to(torch.bfloat16)
     b = q.shape[0]
-    iota = torch.arange(tile, dtype=torch.int32, device=vecs.device)
 
     def product(i):
         return bf16_dot(q_bf, vecs_bf[i * tile : (i + 1) * tile])
@@ -78,9 +79,7 @@ def stages(vecs: torch.Tensor, q: torch.Tensor, n: int, k: int = 10, tile: int =
         best_k = torch.full((b, rerank), float("inf"), device=vecs.device)
         best_i = torch.zeros((b, rerank), dtype=torch.int32, device=vecs.device)
         for i in range(n_tiles):
-            best_k, best_i = smallest_k(torch.cat([best_k, product(i)], 1),
-                                        torch.cat([best_i, (i * tile + iota).expand(b, tile)], 1),
-                                        rerank)
+            best_k, best_i = _merge_tile(best_k, best_i, product(i), i * tile, (0, tile))
         return best_k
 
     return {

@@ -24,7 +24,12 @@ the int8 MXU, which exists only to reach that unit.
 
 Ties: every k-nearest selection here breaks ties to the lowest id. It ranks
 one int64 key per entry, (order-preserving bits of the distance) << 32 | id,
-so the order is total and no top-k implementation can reorder ties.
+so the order is total and no top-k implementation can reorder ties. The
+selection is `ops/select_k.select_k`: kernel K3 on the card, its plain
+version on the CPU. The scans take each tile's k smallest with implicit
+ids (start + column) and merge them with the running k, the structure of
+the JAX version's `fast_knn`; with a total order that is the k smallest of
+the running k and the whole tile.
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ import enum
 from typing import Tuple
 
 import torch
+
+from flatnav_tpu_torch.ops.select_k import _rank_key, _unrank_key, select_k  # noqa: F401
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -140,31 +147,13 @@ def query_block_distances(
     return _tree_sum_last(diff * diff)
 
 
-def _rank_key(dists: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """int64 key ordered by (dist, id): the float's bits made monotone as a
-    signed int32 (negative floats have their low 31 bits flipped), shifted
-    above a non-negative 32-bit id. Adding +0.0 turns -0.0 into +0.0, so
-    the two zeros tie and go to the lower id."""
-    bits = (dists + 0.0).contiguous().view(torch.int32).to(torch.int64)
-    bits = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
-    return (bits << 32) | ids.to(torch.int64)
-
-
-def _unrank_key(key: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    bits = key >> 32
-    bits = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
-    dists = bits.to(torch.int32).view(torch.float32)
-    return dists, (key & 0xFFFFFFFF).to(torch.int32)
-
-
 def smallest_k(
     dists: torch.Tensor, ids: torch.Tensor, k: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Row-wise k smallest (dist, id) pairs of [B, W], ascending; ties go to
-    the lowest id. ids must be non-negative and below 2^31."""
-    key = _rank_key(dists, ids.expand_as(dists))
-    top = torch.topk(key, k, dim=1, largest=False, sorted=True).values
-    return _unrank_key(top)
+    the lowest id. ids ([B, W] or [1, W] int32) must be non-negative. On a
+    CUDA tensor this is kernel K3 (`select_k`)."""
+    return select_k(dists, k, ids=ids)
 
 
 def bf16_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -178,6 +167,15 @@ def bf16_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     if xb.is_cuda:
         return torch.mm(xb, yb.T, out_dtype=torch.float32)
     return xb.to(torch.float32) @ yb.to(torch.float32).T
+
+
+def _merge_tile(best_d, best_i, keys, start, cols):
+    """The running [B, r] shortlist merged with a tile's keys [B, T] whose
+    ids are start + column and whose columns outside `cols` are masked:
+    the tile's r smallest (K3), then the r smallest of the 2r (K3)."""
+    r = best_d.shape[1]
+    tile_d, tile_i = select_k(keys, min(r, keys.shape[1]), id_base=start, cols=cols)
+    return select_k(torch.cat([best_d, tile_d], 1), r, ids=torch.cat([best_i, tile_i], 1))
 
 
 def brute_force_knn(
@@ -207,19 +205,12 @@ def brute_force_knn(
     q_sq = None if _is_int(queries) else squared_norms(queries)
     best_d = torch.full((b, k), float("inf"), device=dev)
     best_i = torch.zeros((b, k), dtype=torch.int32, device=dev)
-    iota = torch.arange(tile, dtype=torch.int32, device=dev)
     for start_raw in range(0, n, tile):
         start = min(start_raw, n - tile)
         rows = dataset[start : start + tile]
         dists = pairwise_distances(queries, rows, metric, x_sq=q_sq)
-        ids = start + iota
-        valid = (ids >= start_raw) & (ids < n_limit)
-        dists = torch.where(valid, dists, float("inf"))
-        best_d, best_i = smallest_k(
-            torch.cat([best_d, dists], 1),
-            torch.cat([best_i, ids.expand(b, tile)], 1),
-            k,
-        )
+        best_d, best_i = _merge_tile(best_d, best_i, dists, start,
+                                     (start_raw - start, n_limit - start))
     return best_d, best_i
 
 
@@ -244,9 +235,9 @@ def fast_knn(
     float32.
 
     The JAX version takes its per-tile shortlist with `approx_min_k` at
-    `recall_target`; torch has no such call, so this one is exact
-    (`smallest_k`) and `recall_target` bounds nothing. It is kept for the
-    JAX signature's sake."""
+    `recall_target`; this one is exact (`select_k`, kernel K3 on the card)
+    and `recall_target` bounds nothing. It is kept for the JAX signature's
+    sake."""
     n, d = dataset.shape
     b = queries.shape[0]
     r = max(rerank, k)
@@ -261,7 +252,6 @@ def fast_knn(
     qf = queries if int_path else queries.to(torch.float32)
     best_k = torch.full((b, r), float("inf"), device=dev)
     best_i = torch.zeros((b, r), dtype=torch.int32, device=dev)
-    iota = torch.arange(tile, dtype=torch.int32, device=dev)
     for start_raw in range(0, n, tile):
         start = min(start_raw, n - tile)
         rows = dataset[start : start + tile]
@@ -277,13 +267,8 @@ def fast_knn(
             key = -dots if metric == MetricType.IP else (
                 squared_norms(rows)[None, :] - 2.0 * dots
             )
-        ids = start + iota
-        key = torch.where((ids >= start_raw) & (ids < n_limit), key, float("inf"))
-        best_k, best_i = smallest_k(
-            torch.cat([best_k, key], 1),
-            torch.cat([best_i, ids.expand(b, tile)], 1),
-            r,
-        )
+        best_k, best_i = _merge_tile(best_k, best_i, key, start,
+                                     (start_raw - start, n_limit - start))
     # slots never filled by a valid row keep their inf key through the
     # rerank, or their id-0 rows would re-score finitely
     exact = query_block_distances(qf, dataset[best_i.long()], metric)

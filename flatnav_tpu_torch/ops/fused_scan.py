@@ -298,8 +298,9 @@ def fused_knn(
     with zero columns to a multiple of 8 (`scan_operands`).
     `bucket_l`, `tile_size`, `query_block` override the automatic shapes
     and `summary_bytes` bounds the phase-A summary (the query batch is
-    chunked past it). Phase B is an exact top-`rerank` where the JAX
-    package uses `approx_min_k`; its ties go to the lowest id.
+    chunked past it). Phase B is an exact top-`rerank` (`smallest_k`:
+    kernel K3 on the card) where the JAX package uses `approx_min_k`; its
+    ties go to the lowest id.
 
     `exact_rerank=False` skips the rerank's row gather and ranks the
     shortlist by the kernel's keys, calibrated back to distances

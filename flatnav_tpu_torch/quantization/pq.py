@@ -17,10 +17,11 @@ ADC search plugs into the shared `beam_search_core` through a table-lookup
 float vectors (4*d/num_subquantizers times fewer bytes a hop).
 
 Differences from the JAX package, all stated where they occur: the scan's
-shortlist is exact (`smallest_k`) where JAX takes `approx_min_k`; its bf16
-keys are accumulated in float32 by the route `_scan_keys` documents; the
-contract checks that are bare `assert`s there raise ValueError here; a
-lane-packed table needs no unpacking here (it is a view).
+shortlist is exact (`select_k`, kernel K3 on the card) where JAX takes
+`approx_min_k`; its bf16 keys are accumulated in float32 by the route
+`_scan_keys` documents; the contract checks that are bare `assert`s there
+raise ValueError here; a lane-packed table needs no unpacking here (it is a
+view).
 """
 
 from __future__ import annotations
@@ -36,8 +37,8 @@ from flatnav_tpu_torch.index.search import BeamResults, SearchResults, beam_sear
 from flatnav_tpu_torch.ops.distances import (
     MetricType,
     _is_int,
+    _merge_tile,
     query_block_distances,
-    smallest_k,
 )
 from flatnav_tpu_torch.ops.gather_distance import gather_distances
 from flatnav_tpu_torch.quantization.kmeans import _lloyd, kmeans
@@ -488,7 +489,6 @@ def pq_scan_knn(
     t_bf = tables.reshape(b, s * nc).to(torch.bfloat16)
     sub_base = torch.arange(s, device=dev) * nc
     onehot = torch.empty((tile, s * nc), dtype=torch.bfloat16, device=dev)
-    iota = torch.arange(tile, dtype=torch.int32, device=dev)
     best_key = torch.full((b, r), float("inf"), device=dev)
     best_i = torch.zeros((b, r), dtype=torch.int32, device=dev)
     for start0 in range(0, n, tile):
@@ -500,14 +500,11 @@ def pq_scan_knn(
             rows = unpack_codes_4bit(rows)
         onehot.zero_().scatter_(1, rows.long() + sub_base, 1.0)
         key = _scan_keys(t_bf, onehot)
-        ids = start + iota
-        key = torch.where((ids >= start0) & (ids < n_limit), key, float("inf"))
-        # exact where the JAX package takes approx_min_k per tile
-        best_key, best_i = smallest_k(
-            torch.cat([best_key, key], 1),
-            torch.cat([best_i, ids.expand(b, tile)], 1),
-            r,
-        )
+        # exact where the JAX package takes approx_min_k per tile: the
+        # tile's r smallest (rows before start0 or past n_limit masked),
+        # merged with the running r (kernel K3 on the card, both times)
+        best_key, best_i = _merge_tile(best_key, best_i, key, start,
+                                       (start0 - start, n_limit - start))
     if vectors is not None and queries is not None:
         # raw-vector rerank: r gathered rows/query vs n scanned codes
         if _is_int(vectors):

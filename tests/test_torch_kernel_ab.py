@@ -114,3 +114,18 @@ def test_scan_bound_counts_8bit_products_at_the_int8_rate():
     ms_bf, _ = scan_bound(qc, n, d, nb, row_bytes=1)  # bf16 queries: bf16 products
     assert ms_bf == pytest.approx(2 * qc * n * d / BF16_FLOP_PER_S * 1e3)
     assert ms8 == pytest.approx(5.2985, abs=1e-4)  # the 10M cell's bound
+
+
+def test_k3_cases_are_shapes_k3_takes():
+    from flatnav_tpu_torch.ops.select_k import K_MAX, _plan
+
+    for name, (b, w, k, ids, keys) in kernel_ab.K3_CASES.items():
+        assert 1 <= k <= min(w, K_MAX) and ids in ("full", "row", "implicit"), name
+        assert keys in ("normal", "ties") and _plan(b, w, k)[-1][0] >= k, name
+
+
+def test_ab_cases_need_a_baseline():
+    with pytest.raises(SystemExit):
+        kernel_ab.main(["--cases", "k1,k3"])
+    if not torch.cuda.is_available():  # k3 alone needs no baseline, only a card
+        assert kernel_ab.main(["--cases", "k3"]) == 2

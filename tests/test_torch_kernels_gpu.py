@@ -640,3 +640,104 @@ def test_fast_knn_ranks_by_bf16_keys_on_card(cuda, rng):
     same = gi.cpu().numpy() == ci.numpy()
     assert same.mean() >= 0.99
     np.testing.assert_allclose(gd.cpu().numpy()[same], cd.numpy()[same], rtol=1e-5, atol=1e-5)
+
+
+# ---- K3 (csrc/select_k.cu): bit-equal to select_k_plain, keys by their bits
+
+K3_SPECIAL = [0.0, -0.0, float("inf"), -float("inf"), float("nan"), 1.0, -1.0]
+
+
+def _k3_keys(rng, kind, b, w, device):
+    if kind == "normal":
+        x = rng.standard_normal((b, w)).astype(np.float32)
+        at = rng.integers(0, b * w, max(1, b * w // 50))
+        x.reshape(-1)[at] = np.array(K3_SPECIAL, np.float32)[rng.integers(0, 7, len(at))]
+        x.reshape(-1)[at[::3]] = -np.float32(np.nan)  # NaN with the sign bit set
+    elif kind == "ties":  # 8-bit tables: integer keys, thousands of exact ties
+        x = rng.integers(0, 16, (b, w)).astype(np.float32)
+    elif kind == "descending":  # every word passes the filter
+        x = -np.sort(rng.standard_normal((b, w)).astype(np.float32), axis=1)
+    else:  # whole rows of +inf: ordered by id alone
+        x = np.full((b, w), np.inf, np.float32)
+    return torch.from_numpy(x).to(device)
+
+
+def _k3_equal(got, want):
+    return (torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+            and torch.equal(got[1], want[1]))
+
+
+@pytest.mark.parametrize("ids_kind", ["full", "row", "implicit"])
+@pytest.mark.parametrize("kind", ["normal", "ties", "descending", "inf"])
+@pytest.mark.parametrize("b,w,k", [(1, 7, 7), (37, 7, 1), (64, 3000, 10), (8, 20000, 32),
+                                   (1, 131072, 64), (300, 8192, 64), (4, 50000, 1024),
+                                   (2, 9000, "K_MAX"), (4096, 64, 32)])
+def test_select_k_bit_equal(cuda, rng, b, w, k, kind, ids_kind):
+    from flatnav_tpu_torch.ops.select_k import K_MAX, select_k, select_k_plain
+
+    k = K_MAX if k == "K_MAX" else k
+    keys = _k3_keys(rng, kind, b, w, cuda)
+    kw = {"id_base": 777, "cols": (w // 10, w - w // 9)} if ids_kind == "implicit" else {}
+    if ids_kind == "full":
+        kw["ids"] = torch.from_numpy(rng.integers(0, 1 << 31, (b, w)).astype(np.int32)).to(cuda)
+    elif ids_kind == "row":
+        kw["ids"] = torch.from_numpy(rng.integers(0, 50, (1, w)).astype(np.int32)).to(cuda)
+    before = select_k.launches
+    got = select_k(keys, k, **kw)
+    assert select_k.launches > before
+    assert _k3_equal(got, select_k_plain(keys, k, **kw))
+
+
+def test_select_k_repeated_pairs(cuda, rng):
+    # equal keys with repeated ids: the same (key, id) pair many times
+    from flatnav_tpu_torch.ops.select_k import select_k, select_k_plain
+
+    keys = torch.from_numpy(rng.integers(0, 3, (50, 40000)).astype(np.float32)).to(cuda)
+    ids = torch.from_numpy(rng.integers(0, 30, (50, 40000)).astype(np.int32)).to(cuda)
+    for k in (5, 100, 2000):
+        assert _k3_equal(select_k(keys, k, ids=ids), select_k_plain(keys, k, ids=ids))
+
+
+def test_select_k_refuses_on_the_card(cuda):
+    from flatnav_tpu_torch.ops.select_k import select_k
+
+    keys = torch.zeros((4, 100), device=cuda)
+    with pytest.raises(ValueError):
+        select_k(keys.t(), 5)  # not contiguous
+    with pytest.raises(ValueError):
+        select_k(keys, 5, ids=torch.zeros((4, 100), dtype=torch.int32))  # ids on the CPU
+    with pytest.raises(TypeError):
+        select_k(keys.half(), 5)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.uint8])
+def test_scans_select_through_k3_on_card(cuda, rng, dtype):
+    # brute_force_knn, fast_knn, pq_scan_knn and fused_knn launch K3; on an
+    # 8-bit table the exact scan's distances are exact integers, so the
+    # card's result equals the CPU's bit for bit, ties included
+    from flatnav_tpu_torch.ops.distances import fast_knn
+    from flatnav_tpu_torch.ops.select_k import select_k
+
+    if dtype == np.uint8:
+        data = rng.integers(0, 4, (5000, 16)).astype(np.uint8)
+        q = rng.integers(0, 4, (64, 16)).astype(np.uint8)
+    else:
+        data = rng.standard_normal((5000, 16)).astype(np.float32)
+        q = rng.standard_normal((64, 16)).astype(np.float32)
+    dg, qg = torch.from_numpy(data).to(cuda), torch.from_numpy(q).to(cuda)
+    for name, call in (("brute", lambda d, x: brute_force_knn(d, x, 10, tile_size=1024, n_valid=4700)),
+                       ("fast", lambda d, x: fast_knn(d, x, 10, tile_size=1024, rerank=40)),
+                       ("fused", lambda d, x: fused_knn(d, x, 10, rerank=32))):
+        before = select_k.launches
+        gd, gi = call(dg, qg)
+        assert select_k.launches > before, name
+        if dtype == np.uint8 and name != "fused":
+            cd, ci = call(torch.from_numpy(data), torch.from_numpy(q))
+            assert torch.equal(gi.cpu(), ci) and torch.equal(gd.cpu(), cd), name
+    codes = torch.from_numpy(rng.integers(0, 16, (5000, 4)).astype(np.uint8))
+    tables = torch.from_numpy(rng.integers(0, 6, (64, 4, 16)).astype(np.float32))
+    before = select_k.launches
+    gd, gi = pq_scan_knn(codes.to(cuda), tables.to(cuda), 10, tile_size=1024, rerank=64)
+    assert select_k.launches > before
+    cd, ci = pq_scan_knn(codes, tables, 10, tile_size=1024, rerank=64)
+    assert torch.equal(gd.cpu(), cd)  # ADC sums of small integers are exact
