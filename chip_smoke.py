@@ -21,10 +21,13 @@ Phases, in order; any failure raises and the script exits nonzero:
      the wrapper's rule names: "wgmma" for bf16 at 64 <= d <= 384 (d=104
      included), "wgmma_wide" at d=960, "wgmma_int8" for 8-bit queries of
      8-bit rows, "mma" for the rest. K3 select_k bit-equal (keys by their
-     bits, ids) on K3_CASES: k in {1, 7, 10, 32, 50, 64, 1024, K_MAX}, rows
-     of 7 to 390,656 columns, B from 1 to 8,192, full / row / implicit ids
+     bits, ids) on K3_CASES: k in {1, 7, 8, 10, 32, 50, 64, 1024, K_MAX}, rows
+     of 7 to 390,656 columns, B from 1 to 16,384, full / row / implicit ids
      with column windows, keys with +-0, +-inf and NaN of both signs, whole
-     rows of +inf, integer keys with thousands of ties, repeated pairs.
+     rows of +inf, integer keys with thousands of ties, repeated pairs; each
+     scan's tile seeded with a running shortlist (`prior=`), the warp-a-row
+     shapes (the build's block, the routed scan, a merge), keys that start
+     off a 16-byte boundary; both routes must have launched.
   3. the main path at full width, the README configuration: clustered data
      (seed 0x5EED), N=100,000, d=128 float32, L2, M=32, ef_construction=100,
      4,096 queries, K=10: create -> add -> search(ef_search=192) ->
@@ -33,11 +36,13 @@ Phases, in order; any failure raises and the script exits nonzero:
      zeroed just before and read just after; recall@10 of every engine is
      measured against the port's brute_force_knn, run inside that window.
      K3 must have launched in brute_force_knn, in the build and in
-     search_exact (counts by step printed). Each kernel is then held
-     against its plain version on the arguments the path gave it (a search
-     hop and a build wave of B=8192, C=1024 for K2, the first scan of
-     search_exact for K1, its first phase-B selection for K3), and K2 is
-     timed at both.
+     search_exact (counts by step and by route printed). Each kernel is
+     then held against its plain version on the arguments the path gave it
+     (a search hop and a build wave of B=8192, C=1024 for K2, the first
+     scan of search_exact for K1, its first phase-B selection (block route)
+     and a build selection (warp route) for K3); K2 is timed at both, and
+     K3's warp route at that build selection (its own entry in the kernels
+     line, "select_k warp", with the warp route's launches).
   4. the scan at SIFT1M scale: search_exact(rerank=32) and fused_knn over a
      1M x 128 float32 clustered table with B=4096, with recall and K1 time;
      K3 at phase B of that scan (keys [4096, 62592] -> 32, ids read),
@@ -118,7 +123,9 @@ Phases, in order; any failure raises and the script exits nonzero:
      torch._int_mm on the uint8 tables); K2 at the d=100 / d=960 hops.
 
 The line before the last is one JSON object with each kernel's launches,
-error against its plain version, times and bound; the last line is
+error against its plain version, times and bound (a kernel with several
+variants or routes has an entry for each that the run times: K1's
+"wgmma_wide" and "wgmma_int8", K3's "warp"); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -224,7 +231,7 @@ def k2_against_plain(vectors, ids, queries, metric, tag) -> float:
     return float((got - want).abs().max())
 
 
-def k3_against_plain(keys, k, ids=None, id_base=0, cols=None, tag="") -> float:
+def k3_against_plain(keys, k, ids=None, id_base=0, cols=None, tag="", prior=None) -> float:
     """K3 must be bit-equal to its plain version: ids equal and keys equal
     in their bits (so NaN keys too). Returns the max abs error over the
     finite keys (0 when bit-equal)."""
@@ -233,8 +240,8 @@ def k3_against_plain(keys, k, ids=None, id_base=0, cols=None, tag="") -> float:
     from flatnav_tpu_torch.ops.select_k import select_k, select_k_plain
 
     before = select_k.launches
-    got = select_k(keys, k, ids=ids, id_base=id_base, cols=cols)
-    want = select_k_plain(keys, k, ids=ids, id_base=id_base, cols=cols)
+    got = select_k(keys, k, ids=ids, id_base=id_base, cols=cols, prior=prior)
+    want = select_k_plain(keys, k, ids=ids, id_base=id_base, cols=cols, prior=prior)
     torch.cuda.synchronize()
     check(select_k.launches > before, f"K3 launched {tag}")
     check(torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
@@ -243,26 +250,36 @@ def k3_against_plain(keys, k, ids=None, id_base=0, cols=None, tag="") -> float:
     return float((got[0][fin] - want[0][fin]).abs().max()) if bool(fin.any()) else 0.0
 
 
-#: K3's cases in phase 2: (B, W, k, ids, keys). The shapes of its callers
-#: (phase B at 1M x 128 and at 100M uint8, a fast_knn and a brute_force_knn
-#: tile with their column windows, the build's intra-wave block, a merge of
-#: two r-wide lists, a PQ tile at the widest rerank), one long row, the
-#: largest k, and rows of special keys.
+#: K3's cases in phase 2: (B, W, k, ids, keys[, extra]). The shapes of its
+#: callers (phase B at 1M x 128 and at 100M uint8, a fast_knn, a
+#: brute_force_knn and a PQ tile with their column windows, each also seeded
+#: with a running shortlist as `_merge_tile` gives it ("prior"), the build's
+#: intra-wave block, the routed scan's rows to their cells and a merge of
+#: two r-wide lists (the warp route), a PQ tile at the widest rerank), one
+#: long row, the largest k, rows of special keys, and keys that start off a
+#: 16-byte boundary ("offset"; W % 4 != 0 puts every later row off one too).
 K3_CASES = [
     (4096, 62_592, 32, "full", "normal"),
     (512, 390_656, 32, "full", "ties"),
     (1, 390_656, 1024, "implicit", "normal"),
     (4096, 131_072, 32, "implicit", "normal"),
+    (4096, 131_072, 32, "implicit", "normal", "prior"),
     (4096, 65_536, 10, "implicit", "ties"),
+    (4096, 65_536, 10, "implicit", "ties", "prior"),
+    (4096, 32_768, 64, "implicit", "normal", "prior"),
     (8192, 8192, 64, "broadcast", "masked"),
+    (16_384, 196, 8, "broadcast", "normal"),
     (4096, 64, 32, "full", "normal"),
     (64, 32_768, 1024, "implicit", "ties"),
     (16, 100_000, "K_MAX", "implicit", "normal"),
+    (16, 100_000, "K_MAX", "implicit", "normal", "prior"),
     (4096, 1000, 64, "full", "inf"),
     (1, 5000, 10, "full", "nan"),
     (100, 3000, 50, "full", "dup"),
     (37, 7, 1, "broadcast", "special"),
     (1, 7, 7, "implicit", "special"),
+    (512, 131_071, 32, "full", "normal", "offset"),
+    (333, 8191, 64, "broadcast", "ties", "offset"),
 ]
 
 
@@ -314,22 +331,56 @@ def k3_case(b, w, ids_kind, keys_kind, seed):
     return keys, ids, id_base, cols
 
 
-def phase_k3():
-    """K3 against its plain version on every case of K3_CASES. -> max abs error"""
+def k3_prior(keys, k, seed):
+    """A running shortlist [B, k] for a seeded case: the sorted smallest keys
+    of an earlier tile (normal keys shifted down, ids below the tile's), its
+    second half the (+inf, id 0) padding a scan starts from."""
     import torch
 
-    from flatnav_tpu_torch.ops.select_k import K_MAX
+    g = torch.Generator(device=keys.device).manual_seed(seed)
+    b = keys.shape[0]
+    d = torch.sort(torch.randn((b, k), device=keys.device, generator=g) - 2.5, dim=1).values
+    i = torch.randint(0, 1_000_000, (b, k), device=keys.device, generator=g, dtype=torch.int32)
+    d[:, k // 2 :], i[:, k // 2 :] = float("inf"), 0
+    return d.contiguous(), i.contiguous()
+
+
+def at_offset(x, off):
+    """x copied into a flat buffer `off` elements past a 16-byte boundary"""
+    import torch
+
+    flat = torch.empty(x.numel() + 4, dtype=x.dtype, device=x.device)
+    y = flat[off : off + x.numel()].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+def phase_k3():
+    """K3 against its plain version on every case of K3_CASES; both routes
+    must launch. -> max abs error"""
+    import torch
+
+    from flatnav_tpu_torch.ops.select_k import K_MAX, select_k
 
     err = 0.0
-    for i, (b, w, k, ids_kind, keys_kind) in enumerate(K3_CASES):
+    routes = dict(select_k.routes)
+    for i, (b, w, k, ids_kind, keys_kind, *extra) in enumerate(K3_CASES):
         k = K_MAX if k == "K_MAX" else k
         keys, ids, id_base, cols = k3_case(b, w, ids_kind, keys_kind, seed=i)
+        prior = k3_prior(keys, k, seed=100 + i) if extra == ["prior"] else None
+        if extra == ["offset"]:
+            keys = at_offset(keys, 1 + i % 3)
+            check(keys.data_ptr() % 16 != 0, "K3 keys off a 16-byte boundary")
         err = max(err, k3_against_plain(keys, k, ids, id_base, cols,
-                                         f"B={b} W={w} k={k} {ids_kind} ids, {keys_kind} keys"))
-        del keys, ids
+                                         f"B={b} W={w} k={k} {ids_kind} ids, {keys_kind} keys"
+                                         f"{' ' + extra[0] if extra else ''}", prior=prior))
+        del keys, ids, prior
     torch.cuda.empty_cache()
+    routes = {r: select_k.routes[r] - routes[r] for r in routes}
+    check(all(v > 0 for v in routes.values()), "K3's block and warp routes both launched")
     print(f"K3 select_k: bit-equal to the plain version on {len(K3_CASES)} cases "
-          f"(k up to K_MAX={K_MAX}, W from 7 to 390,656, B from 1 to 8,192)")
+          f"(k up to K_MAX={K_MAX}, W from 7 to 390,656, B from 1 to 16,384, seeded and "
+          f"unaligned cases included); launches by route {routes}")
     return err
 
 
@@ -399,6 +450,7 @@ def phase_main_path():
     import flatnav_tpu_torch
     from flatnav_tpu_torch.bench.measure import CallRecorder
     from flatnav_tpu_torch.bench.synth import clustered
+    from flatnav_tpu_torch.index import build as build_mod
     from flatnav_tpu_torch.index import search as search_mod
     from flatnav_tpu_torch.ops import brute_force_knn
     from flatnav_tpu_torch.ops import fused_scan as fused_mod
@@ -420,20 +472,30 @@ def phase_main_path():
     scan_rec = CallRecorder(scan_buckets)
     # phase B's first selection (K3) of search_exact(rerank=32)
     phase_b_rec = CallRecorder(fused_mod.smallest_k)
+    # a build wave's intra-wave selection (K3's warp route), its 10th
+    build_sel_rec = CallRecorder(build_mod.smallest_k, nth=10)
     search_mod.gather_distances = hop_rec
     fused_mod.scan_buckets = scan_rec
     fused_mod.smallest_k = phase_b_rec
+    build_mod.smallest_k = build_sel_rec
     out = {}
     k3 = {}  # K3 launches by step of the path
+    k3_routes = {}  # ... and by route
+
+    def routes_since(before):
+        return {r: select_k.routes[r] - before[r] for r in before}
     try:
         gather_distances.launches = 0
         scan_buckets.launches = 0
         scan_buckets.variants = dict.fromkeys(scan_buckets.variants, 0)
         select_k.launches = 0
+        select_k.routes = dict.fromkeys(select_k.routes, 0)
         # the ground truth of every recall below: brute_force_knn (K3)
         _, gt = brute_force_knn(torch.from_numpy(data).cuda(), torch.from_numpy(queries).cuda(), k)
         gt = gt.cpu().numpy()
         k3["brute_force_knn"] = select_k.launches
+        k3_routes["brute_force_knn"] = routes_since(dict.fromkeys(select_k.routes, 0))
+        routes_before = dict(select_k.routes)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -444,6 +506,7 @@ def phase_main_path():
         torch.cuda.synchronize()
         out["build_s"] = time.perf_counter() - t0
         k3["build"] = select_k.launches - k3["brute_force_knn"]
+        k3_routes["build"] = routes_since(routes_before)
         out["build_peak"] = device_memory_stats()["peak_bytes_in_use"]
         hop_rec.reset()  # keep a query hop, not a build hop
 
@@ -457,11 +520,12 @@ def phase_main_path():
             return dist, lab
 
         d1, l1 = run("graph", lambda: index.search(queries, K=k, ef_search=ef))
-        before = select_k.launches
+        before, routes_before = select_k.launches, dict(select_k.routes)
         run("exact", lambda: index.search_exact(queries, K=k))
         run("fused", lambda: index.search_exact(queries, K=k, rerank=32))
         run("fusednr", lambda: index.search_exact(queries, K=k, rerank=32, exact_rerank=False))
         k3["search_exact"] = select_k.launches - before
+        k3_routes["search_exact"] = routes_since(routes_before)
         with tempfile.TemporaryDirectory(dir=REPO) as tmp:
             path = os.path.join(tmp, "smoke_index.npz")
             index.save(path)
@@ -471,11 +535,14 @@ def phase_main_path():
         launches = {"gather_distances": gather_distances.launches,
                     "scan_buckets": scan_buckets.launches,
                     "scan_buckets variants": dict(scan_buckets.variants),
-                    "select_k": select_k.launches, "select_k by step": k3}
+                    "select_k": select_k.launches, "select_k by step": k3,
+                    "select_k by route": dict(select_k.routes),
+                    "select_k by step and route": k3_routes}
     finally:
         search_mod.gather_distances = gather_distances
         fused_mod.scan_buckets = scan_buckets
         fused_mod.smallest_k = phase_b_rec.fn
+        build_mod.smallest_k = build_sel_rec.fn
     check(np.array_equal(l1, l2) and np.array_equal(d1, d2), "reloaded search identical")
     print(f"main path: N={n} d={d} M={m} ef_construction={efc} build {out['build_s']:.2f} s, "
           f"peak device memory {out['build_peak'] / 1e6:.1f} MB, "
@@ -493,8 +560,10 @@ def phase_main_path():
     check(out["fused"]["recall"] >= 0.98, "fused recall >= 0.98")
     check(out["graph"]["recall"] >= 0.90, "graph recall >= 0.90")
     check(hop_rec.args is not None and wave_rec.args is not None and scan_rec.args is not None
-          and phase_b_rec.args is not None,
-          "a search hop, a build wave, a scan call and a phase-B selection were recorded")
+          and phase_b_rec.args is not None and build_sel_rec.args is not None,
+          "a search hop, a build wave, a scan call and two K3 selections were recorded")
+    check(all(v > 0 for v in launches["select_k by route"].values()),
+          "the main path launched both of K3's routes")
     # each kernel against its plain version at the shapes the path gave it
     k2_err = k2_against_plain(*hop_rec.args, "main-path hop")
     k2_err = max(k2_err, k2_against_plain(*wave_rec.args, "main-path build wave"))
@@ -506,11 +575,15 @@ def phase_main_path():
           f"max abs err {k1_err:g}")
     bmin, bids, r = phase_b_rec.args
     k3_err = k3_against_plain(bmin, r, ids=bids, tag="main-path phase B")
-    print(f"  K3 at the main path's phase B: keys {tuple(bmin.shape)} -> {r}, ids read, bit-equal")
+    intra, lane_ids, c2 = build_sel_rec.args
+    k3_err = max(k3_err, k3_against_plain(intra, c2, ids=lane_ids, tag="main-path build selection"))
+    print(f"  K3 at the main path's phase B: keys {tuple(bmin.shape)} -> {r}, ids read, bit-equal; "
+          f"at a build selection: keys {tuple(intra.shape)} -> {c2}, one id row, bit-equal")
+    print(f"  K3 launches by step and route: {k3_routes}")
     path = {"index": index, "data": data, "queries": queries, "gt": gt, "labels": l1,
             "dists": d1, "recall": out["graph"]["recall"], "k": k, "ef": ef,
             "build_peak": out["build_peak"]}
-    return launches, hop_rec.args, wave_rec.args, k1_err, k2_err, k3_err, path
+    return launches, hop_rec.args, wave_rec.args, build_sel_rec.args, k1_err, k2_err, k3_err, path
 
 
 def k2_timing(call, what):
@@ -615,27 +688,33 @@ def phase_scan_1m():
 
 def k3_timing(q_bf, ds_bf, pen, n, t, L, r):
     """K3 at phase B of the 1M scan (the [B, N/L] bucket summary K1 gives,
-    ids read, -> r): bit-equal to its plain version, then its time beside
-    the plain version's, the bound and `torch.topk` of the float keys alone
-    (a yardstick: it fixes no order among ties, so it is not the same
-    function and the port never calls it)."""
+    ids read, -> r; its block route)."""
+    from flatnav_tpu_torch.ops.fused_scan import scan_buckets
+
+    bmin, bids = scan_buckets(q_bf, ds_bf, pen, n, t, L)
+    return k3_times(bmin, r, bids, "full", "1M phase B")
+
+
+def k3_times(keys, k, ids, ids_kind, tag):
+    """K3 at one call: bit-equal to its plain version, then its time beside
+    the plain version's, the bound (`measure.select_bound`) and `torch.topk`
+    of the float keys alone (a yardstick: it fixes no order among ties, so
+    it is not the same function and the port never calls it)."""
     import torch
 
     from flatnav_tpu_torch.bench.measure import select_bound, timed
-    from flatnav_tpu_torch.ops.fused_scan import scan_buckets
     from flatnav_tpu_torch.ops.select_k import select_k, select_k_plain
 
-    bmin, bids = scan_buckets(q_bf, ds_bf, pen, n, t, L)
-    b, nb = bmin.shape
-    k3_against_plain(bmin, r, ids=bids, tag="1M phase B")
-    ms = timed(lambda: select_k(bmin, r, ids=bids), reps=10, warmup=2)
-    plain_ms = timed(lambda: select_k_plain(bmin, r, ids=bids), reps=3, warmup=1)
-    lib_ms = timed(lambda: torch.topk(bmin, r, dim=1, largest=False), reps=5, warmup=1)
-    bound, by = select_bound(b, nb, ids_read=True, k=r)
-    print(f"K3 at 1M phase B, keys [{b}, {nb}] -> {r}, ids read: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"torch.topk yardstick {lib_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+    b, w = keys.shape
+    k3_against_plain(keys, k, ids=ids, tag=tag)
+    ms = timed(lambda: select_k(keys, k, ids=ids), reps=10, warmup=2)
+    plain_ms = timed(lambda: select_k_plain(keys, k, ids=ids), reps=3, warmup=1)
+    lib_ms = timed(lambda: torch.topk(keys, k, dim=1, largest=False), reps=5, warmup=1)
+    bound, by = select_bound(b, w, k, ids=ids_kind)
+    print(f"K3 at {tag}, keys [{b}, {w}] -> {k}, ids {ids_kind}: {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, torch.topk yardstick {lib_ms:.4f} ms, bound {bound:.4f} ms ({by})")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
-            "library": "torch.topk float keys", "timed_at": {"b": b, "w": nb, "k": r}}
+            "library": "torch.topk float keys", "timed_at": {"b": b, "w": w, "k": k, "ids": ids_kind}}
 
 
 #: share of result slots that keep their label across reorder(["gorder",
@@ -888,7 +967,7 @@ def phase_pq_scan(table):
             per_tile(lambda st: pq_mod._scan_keys_bf16(t_bf, onehot)), reps=2, warmup=1),
         "keys, f32 matmul of the rounded operands": timed(
             per_tile(lambda st: pq_mod._scan_keys_f32(t_bf, onehot)), reps=1, warmup=1),
-        "shortlist (K3: a tile's r, then the merge)": timed(
+        "shortlist (K3: one launch a tile, seeded with the running r)": timed(
             per_tile(lambda st: _merge_tile(best[0], best[1], key, st, (0, tile))),
             reps=2, warmup=1),
     }
@@ -1434,14 +1513,24 @@ def main() -> int:
     k1p = {"name": "profile_fused_stages phaseA", "route": "cuda", "variant": "wgmma",
            "source": "flatnav_tpu_torch/csrc/fused_scan.cu",
            "replaces": "tools/profile_fused_stages.py:70"}
-    k3 = {"name": "select_k", "route": "cuda", "variant": "radix",
+    # K3's two routes, each timed at a call of its own: the block route
+    # (bulk copies into a ring, filter, radix select) at 1M phase B, the
+    # warp route (a warp a row, its list sorted in registers) at a build
+    # selection of the main path
+    k3 = {"name": "select_k", "route": "cuda", "variant": "block",
           "source": "flatnav_tpu_torch/csrc/select_k.cu",
           "replaces": "flatnav_tpu/ops/fused_scan.py:385"}
-    kernels = [k1, k2, k3]
+    k3w = {"name": "select_k warp", "route": "cuda", "variant": "warp",
+           "source": "flatnav_tpu_torch/csrc/select_k.cu",
+           "replaces": "flatnav_tpu/ops/fused_scan.py:385"}
+    kernels = [k1, k2, k3, k3w]
     if not quick:
-        launches, hop, wave, k1_main, k2_main, k3_main, path = phase_main_path()
+        launches, hop, wave, build_sel, k1_main, k2_main, k3_main, path = phase_main_path()
         k2.update(k2_timing(hop, "search hop"))
         k2["build_wave"] = k2_timing(wave, "build wave")
+        intra, lane_ids, c2 = build_sel
+        k3w.update(k3_times(intra, c2, lane_ids, "row", "a main-path build selection"))
+        del build_sel, intra, lane_ids
         mark("3 main path")
         k2["launches_reordered_search"] = phase_reorder(path)
         mark("5 reorder")
@@ -1460,7 +1549,7 @@ def main() -> int:
         k2["launches_headline"] = head["kernel_launches"]["gather_distances"]
         phase_routed_scan()
         mark("9 routed scan")
-        err_1m, k1_times, k1p_times, k3_times, table = phase_scan_1m()
+        err_1m, k1_times, k1p_times, k3_times_1m, table = phase_scan_1m()
         mark("4 1M scan")
         k2["launches_pq_raw_rerank"] = phase_pq_scan(table)
         del table
@@ -1497,12 +1586,16 @@ def main() -> int:
         kernels.append(k1p)
         k1["launches"] = launches["scan_buckets"]
         k2["launches"] = launches["gather_distances"]
-        k3.update(k3_times, launches=launches["select_k"],
-                  launches_by_step=launches["select_k by step"])
+        by_route = launches["select_k by route"]
+        k3.update(k3_times_1m, launches=by_route["block"], launches_all_routes=launches["select_k"],
+                  launches_by_step=launches["select_k by step"], launches_by_route=by_route,
+                  launches_by_step_and_route=launches["select_k by step and route"])
+        k3w["launches"] = by_route["warp"]
         k3_err = max(k3_err, k3_main)
         k1_err = max(k1_err, k1_main, err_1m, k1_shard)
         k2_err = max(k2_err, k2_main, k2_compact, k2_shard)
-    k1["max_abs_err"], k2["max_abs_err"], k3["max_abs_err"] = k1_err, k2_err, k3_err
+    k1["max_abs_err"], k2["max_abs_err"] = k1_err, k2_err
+    k3["max_abs_err"] = k3w["max_abs_err"] = k3_err
     print(f"seconds by phase: {phase_s}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

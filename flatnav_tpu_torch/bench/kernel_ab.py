@@ -1,9 +1,10 @@
 """Kernels of this checkout against another version's, alternating on the card.
 
     python -m flatnav_tpu_torch.bench.kernel_ab --baseline DIR [--reps 10] [--cases k2,k1]
-    python -m flatnav_tpu_torch.bench.kernel_ab --cases k3 [--k3 phaseB-1M,...]
+    python -m flatnav_tpu_torch.bench.kernel_ab --cases k3 [--baseline DIR] [--k3 phaseB-1M,...]
 
-DIR holds the other version's `gather_distance.cu` and/or `fused_scan.cu`,
+DIR holds the other version's `gather_distance.cu`, `fused_scan.cu` and/or
+`select_k.cu`,
 for example another commit's (`git archive <commit> flatnav_tpu_torch/csrc |
 tar -x -C <dir>`). Each is built by nvcc with this checkout's flags and called
 through the C entry its own source declares: the parameter list is read from
@@ -34,13 +35,17 @@ Each line gives the bound (`measure.gather_bound` / `measure.scan_bound`)
 and, for K1, the plain version's time and the time of torch.matmul bf16
 (and torch._int_mm for 8-bit rows) on the same inputs.
 
-K3 (`--cases k3`, no baseline: the parent has no such kernel) at its
-callers' shapes (`K3_CASES`, `--k3` picks them): `select_k` held bit-equal
-to `select_k_plain`, then timed twice around `torch.topk` of the float keys
-alone (a yardstick that fixes no order among ties, so not the same
-function), the plain version once, and `measure.select_bound`. The last
-line is every K3 case as one JSON object. Needs a CUDA card; exits 2
-without one.
+K3 (`--cases k3`) at its callers' shapes (`K3_CASES`, and `K3_SEEDED`:
+a scan's tile merged into its running k; `--k3` picks them): `select_k`
+held bit-equal to `select_k_plain`, then timed in turns with `torch.topk`
+of the float keys alone (a yardstick that fixes no order among ties, so not
+the same function) and, with `--baseline`, the other version's
+`select_k.cu`, driven as its wrapper drove it (`base_select`: the wrapper's
+rounds, `run_rounds`, and for a seeded case the tile's k and then the merge
+over the concatenated 2k, two launches); a seeded case also times this
+checkout's kernel in that two-launch form ("K3 two launches"); then the
+plain version once, and `measure.select_bound`. The last line is every K3 case as one JSON object.
+Needs a CUDA card; exits 2 without one.
 """
 
 from __future__ import annotations
@@ -74,11 +79,12 @@ from flatnav_tpu_torch.ops.gather_distance import (
     gather_distances,
     gather_distances_plain,
 )
-from flatnav_tpu_torch.ops.select_k import _plan, select_k, select_k_plain
+from flatnav_tpu_torch.ops.select_k import _plan, _route, run_rounds, select_k, select_k_plain
 
 _ENTRY = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)')
 _SOURCES = {"k2": ("gather_distance", "gather_distance_launch"),
-            "k1": ("fused_scan", "fused_scan_launch")}
+            "k1": ("fused_scan", "fused_scan_launch"),
+            "k3": ("select_k", "select_k_launch")}
 
 
 class BaseEntry:
@@ -296,10 +302,55 @@ K3_CASES = {
 }
 
 
-def k3_cases(reps: int, names: list[str]) -> list[dict]:
+#: K3 cases seeded with a running shortlist, as `_merge_tile` gives them:
+#: label -> (B, W, k, ids, keys) as in K3_CASES; the prior is the k smallest
+#: of an earlier tile of the same shape
+K3_SEEDED = {
+    "merge-tile": (4096, 131_072, 32, "implicit", "normal"),  # fast_knn's tile and its merge
+    "brute-merge-tile": (4096, 65_536, 10, "implicit", "normal"),  # brute_force_knn's
+    "pq-merge-tile": (4096, 32_768, 64, "implicit", "normal"),  # pq_scan_knn's, rerank 64
+    "pq-merge-tile-1024": (1024, 32_768, 1024, "implicit", "normal"),  # the 100M PQ's widest
+}
+
+
+def base_select(select, keys, k, ids=None, id_base=0, cols=None):
+    """A version's `select_k.cu` driven as the parent's wrapper drove it
+    (the wrapper's rounds, `run_rounds`, with no prior): `select` is a
+    baseline's entry or this checkout's `select_k` (which then launches as
+    it always does). -> ((keys [B, k], ids [B, k]), launches)"""
+    if select is select_k:
+        before = select_k.launches
+        return select_k(keys, k, ids=ids, id_base=id_base, cols=cols), select_k.launches - before
+    routes = []
+
+    def launch(route, args):
+        select(**args)  # an entry without `route` or a prior takes what it declares
+        routes.append(route)
+
+    return run_rounds(launch, _stream(), keys, k, ids, id_base, cols), len(routes)
+
+
+def base_merge_tile(select, best_d, best_i, keys, start):
+    """The parent's `_merge_tile`, with `select` as in `base_select`: the
+    tile's r smallest, then the r smallest of the concatenated 2r.
+    -> ((keys, ids), launches)"""
+    r = best_d.shape[1]
+    (tile_d, tile_i), n1 = base_select(select, keys, r, id_base=start)
+    out, n2 = base_select(select, torch.cat([best_d, tile_d], 1), r,
+                          ids=torch.cat([best_i, tile_i], 1))
+    return out, n1 + n2
+
+
+def _k3_same(got, want):
+    return (torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+            and torch.equal(got[1], want[1]))
+
+
+def k3_cases(reps: int, names: list[str], base: BaseEntry | None = None) -> list[dict]:
     out = []
     for name in names:
-        b, w, k, ids_kind, keys_kind = K3_CASES[name]
+        seeded = name in K3_SEEDED
+        b, w, k, ids_kind, keys_kind = (K3_SEEDED if seeded else K3_CASES)[name]
         g = torch.Generator(device="cuda").manual_seed(0)
         if keys_kind == "ties":
             keys = torch.randint(0, 64, (b, w), device="cuda", generator=g).float()
@@ -311,22 +362,49 @@ def k3_cases(reps: int, names: list[str]) -> list[dict]:
                                        dtype=torch.int32)}
         elif ids_kind == "row":
             kw = {"ids": torch.arange(w, dtype=torch.int32, device="cuda")[None, :]}
-        got, want = select_k(keys, k, **kw), select_k_plain(keys, k, **kw)
-        if not (torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
-                and torch.equal(got[1], want[1])):
+        if seeded:  # the running shortlist after an earlier tile
+            earlier = torch.randn((b, w), device="cuda", generator=g)
+            kw["prior"] = select_k_plain(earlier, k, id_base=kw["id_base"] + w)
+            del earlier
+        want = select_k_plain(keys, k, **kw)
+        before = select_k.launches
+        got = select_k(keys, k, **kw)
+        launches = select_k.launches - before
+        if not _k3_same(got, want):
             raise RuntimeError(f"K3 {name}: differs from the plain version")
-        times = alternate({"K3": lambda: select_k(keys, k, **kw),
-                           "torch.topk": lambda: torch.topk(keys, k, dim=1, largest=False)}, reps)
+        fns = {"K3": lambda: select_k(keys, k, **kw)}
+        if seeded:  # this kernel as the parent's _merge_tile drove its own
+            two = lambda: base_merge_tile(select_k, *kw["prior"], keys, kw["id_base"])  # noqa: E731
+            if not _k3_same(two()[0], want):
+                raise RuntimeError(f"K3 {name}: the two-launch form differs from the plain version")
+            fns["K3 two launches"] = two
+        base_launches = None
+        if base is not None:
+            if seeded:
+                call = lambda: base_merge_tile(base, *kw["prior"], keys, kw["id_base"])  # noqa: E731
+            else:
+                call = lambda: base_select(base, keys, k, **kw)  # noqa: E731
+            got_base, base_launches = call()
+            if not _k3_same(got_base, want):
+                raise RuntimeError(f"K3 {name}: the baseline differs from the plain version")
+            fns = {"base": call, **fns}
+        fns["torch.topk"] = lambda: torch.topk(keys, k, dim=1, largest=False)
+        times = alternate(fns, reps)
         times["plain"] = [timed(lambda: select_k_plain(keys, k, **kw), reps=1, warmup=1)]
-        bound, by = select_bound(b, w, ids_kind == "full", k)
-        rounds = len(_plan(b, w, k))
-        show(f"K3 {name}: [{b}, {w}] -> {k}, {ids_kind} ids, {keys_kind} keys, {rounds} "
-             f"launch{'es' if rounds > 1 else ''} (bit-equal)", times, bound, by)
+        bound, by = select_bound(b, w, k, ids=ids_kind, prior=seeded)
+        route = _route(k, _plan(b, w, k)[0][1])
+        show(f"K3 {name}: [{b}, {w}] -> {k}, {ids_kind} ids, {keys_kind} keys"
+             f"{', seeded with a prior [B, k]' if seeded else ''}, route {route}, {launches} "
+             f"launch{'es' if launches > 1 else ''}"
+             f"{'' if base is None else f' (base {base_launches})'} (bit-equal)",
+             times, bound, by)
+        mean = {x: sum(t) / len(t) for x, t in times.items()}
         out.append({"case": name, "b": b, "w": w, "k": k, "ids": ids_kind, "keys": keys_kind,
-                    "launches": rounds, "bound_ms": bound, "bound_by": by,
-                    **{f"{x}_ms": sum(t) / len(t) for x, t in (("k3", times["K3"]),
-                                                               ("topk", times["torch.topk"]),
-                                                               ("plain", times["plain"]))}})
+                    "prior": seeded, "route": route, "launches": launches,
+                    "base_launches": base_launches, "bound_ms": bound, "bound_by": by,
+                    "k3_ms": mean["K3"], "base_ms": mean.get("base"),
+                    "k3_two_launches_ms": mean.get("K3 two launches"),
+                    "topk_ms": mean["torch.topk"], "plain_ms": mean["plain"]})
         del keys, kw, got, want
         torch.cuda.empty_cache()
     return out
@@ -334,13 +412,14 @@ def k3_cases(reps: int, names: list[str]) -> list[dict]:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--baseline", type=Path, help="the other version's csrc (k1, k2)")
+    ap.add_argument("--baseline", type=Path,
+                    help="the other version's csrc (needed by k1 and k2; k3 optional)")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--cases", default="k2,k1", help="comma-separated: k2, k1, k3")
     ap.add_argument("--k1", default=",".join(K1_CASES),
                     help=f"comma-separated K1 cases: {', '.join(K1_CASES)}")
-    ap.add_argument("--k3", default=",".join(K3_CASES),
-                    help=f"comma-separated K3 cases: {', '.join(K3_CASES)}")
+    ap.add_argument("--k3", default=",".join([*K3_CASES, *K3_SEEDED]),
+                    help=f"comma-separated K3 cases: {', '.join([*K3_CASES, *K3_SEEDED])}")
     args = ap.parse_args(argv)
     cases = args.cases.split(",")
     ab = [c for c in cases if c != "k3"]
@@ -349,8 +428,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
-    _build.build([_SOURCES[c][0] for c in ab] + (["select_k"] if "k3" in cases else []))
-    base = build_baseline(args.baseline, ab) if ab else {}
+    _build.build([_SOURCES[c][0] for c in cases])
+    with_base = ab + (["k3"] if "k3" in cases and args.baseline is not None else [])
+    base = build_baseline(args.baseline, with_base) if with_base else {}
     print(f"{card()}; torch {torch.__version__}; baseline {args.baseline}")
     rng = np.random.default_rng(0)
     if "k2" in cases:
@@ -358,7 +438,9 @@ def main(argv=None) -> int:
     if "k1" in cases:
         k1_cases(base["k1"], args.reps, args.k1.split(","))
     if "k3" in cases:
-        print(json.dumps({"card": card(), "k3": k3_cases(args.reps, args.k3.split(","))}))
+        print(json.dumps({"card": card(), "baseline": None if "k3" not in base else
+                          str(args.baseline),
+                          "k3": k3_cases(args.reps, args.k3.split(","), base.get("k3"))}))
     return 0
 
 

@@ -75,12 +75,17 @@ def scan_bound(qc: int, n: int, d: int, nb: int, row_bytes: int = 2, q_bytes: in
     return _bound(nbytes, 2 * qc * n * d, rate)
 
 
-def select_bound(b: int, w: int, ids_read: bool, k: int = 0):
-    """-> (ms, "bytes") of K3 over a [b, w] float32 key matrix: each key read
-    once (4 B), each id too where the ids are a tensor (4 B more; implicit
-    ids are not read), and the [b, k] f32 + i32 result written once. The
-    selection does no arithmetic the peak rates count."""
-    nbytes = b * w * (8 if ids_read else 4) + b * k * 8
+def select_bound(b: int, w: int, k: int, ids: str = "implicit", prior: bool = False):
+    """-> (ms, "bytes") of K3 over a [b, w] float32 key matrix -> k: each
+    key read once (4 B), the [b, k] f32 + i32 result written once, a [b, k]
+    prior of f32 + i32 read once where one is given, and the ids that the
+    function must read: those of the k pairs a row returns (4 B each) where
+    the ids are a [b, w] tensor ("full") or one [1, w] row ("row"), none
+    where they are implicit (start + column). The rest of an id tensor need
+    not be read. The selection does no arithmetic the peak rates count."""
+    if ids not in ("full", "row", "implicit"):
+        raise ValueError(f"select_bound: ids must be full, row or implicit, not {ids!r}")
+    nbytes = b * w * 4 + b * k * (8 + (8 if prior else 0) + (0 if ids == "implicit" else 4))
     return _bound(nbytes, 0, BF16_FLOP_PER_S)
 
 

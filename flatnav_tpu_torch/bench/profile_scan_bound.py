@@ -12,9 +12,9 @@ row tiles, it times:
 
   matmul   one bf16 product a tile (float32 result) and a running minimum:
            the scan's products with no selection, the yardstick of the bound
-  select   matmul + the port's exact selection as fast_knn takes it: each
-           tile's `rerank` smallest keys (K3 on the card, implicit ids),
-           merged with the running shortlist (K3 over the 2 x rerank):
+  select   matmul + the port's exact selection as fast_knn takes it: the
+           `rerank` smallest of each tile's keys (implicit ids) and the
+           running shortlist, one K3 launch a tile seeded with it:
            fast_knn's phase 1 without its norms and rerank. It stands where
            the JAX tool's `approx` stage (approx_min_k a tile) stood; the
            port's top-k is exact

@@ -26,10 +26,10 @@ Ties: every k-nearest selection here breaks ties to the lowest id. It ranks
 one int64 key per entry, (order-preserving bits of the distance) << 32 | id,
 so the order is total and no top-k implementation can reorder ties. The
 selection is `ops/select_k.select_k`: kernel K3 on the card, its plain
-version on the CPU. The scans take each tile's k smallest with implicit
-ids (start + column) and merge them with the running k, the structure of
-the JAX version's `fast_knn`; with a total order that is the k smallest of
-the running k and the whole tile.
+version on the CPU. The scans merge each tile, with implicit ids (start +
+column), into the running k in one selection seeded with it (`prior=`): the
+k smallest of the running k and the whole tile, which is what the JAX
+version's `fast_knn` computes as the tile's k then a merge.
 """
 
 from __future__ import annotations
@@ -171,11 +171,10 @@ def bf16_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 def _merge_tile(best_d, best_i, keys, start, cols):
     """The running [B, r] shortlist merged with a tile's keys [B, T] whose
-    ids are start + column and whose columns outside `cols` are masked:
-    the tile's r smallest (K3), then the r smallest of the 2r (K3)."""
-    r = best_d.shape[1]
-    tile_d, tile_i = select_k(keys, min(r, keys.shape[1]), id_base=start, cols=cols)
-    return select_k(torch.cat([best_d, tile_d], 1), r, ids=torch.cat([best_i, tile_i], 1))
+    ids are start + column and whose columns outside `cols` are masked: the
+    r smallest of the running r and the tile, in one selection (K3 seeded
+    with the running r as its prior)."""
+    return select_k(keys, best_d.shape[1], id_base=start, cols=cols, prior=(best_d, best_i))
 
 
 def brute_force_knn(

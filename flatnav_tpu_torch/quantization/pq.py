@@ -500,9 +500,9 @@ def pq_scan_knn(
             rows = unpack_codes_4bit(rows)
         onehot.zero_().scatter_(1, rows.long() + sub_base, 1.0)
         key = _scan_keys(t_bf, onehot)
-        # exact where the JAX package takes approx_min_k per tile: the
-        # tile's r smallest (rows before start0 or past n_limit masked),
-        # merged with the running r (kernel K3 on the card, both times)
+        # exact where the JAX package takes approx_min_k per tile: the r
+        # smallest of the running r and the tile (rows before start0 or
+        # past n_limit masked), one K3 launch on the card
         best_key, best_i = _merge_tile(best_key, best_i, key, start,
                                        (start0 - start, n_limit - start))
     if vectors is not None and queries is not None:

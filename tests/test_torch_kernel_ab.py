@@ -35,6 +35,7 @@ class _Lib:
     def __init__(self):
         self.fused_scan_launch = _Fn()
         self.gather_distance_launch = _Fn()
+        self.select_k_launch = _Fn()
 
 
 K1_VALUES = dict(q=1, rows=2, row_type=0, pen=3, qc=4, n=5, d=6, nlim=7, t=8, L=9, nb=10,
@@ -129,3 +130,112 @@ def test_ab_cases_need_a_baseline():
         kernel_ab.main(["--cases", "k1,k3"])
     if not torch.cuda.is_available():  # k3 alone needs no baseline, only a card
         assert kernel_ab.main(["--cases", "k3"]) == 2
+
+
+# the K3 entry of the parent (no prior, no route) and of this checkout
+K3_OLD = '''extern "C" int select_k_launch(const void* keys, const void* ids, int id_rows, int id_base,
+                               const void* pairs, int B, int W, int k, int col_lo,
+                               int col_hi, int slice, void* out_d, void* out_i,
+                               void* out_pairs, void* stream) {'''
+
+
+class _Recorder:
+    """A baseline entry that records the values of every call by name."""
+
+    def __init__(self, src):
+        self.calls = []
+        self.entry = kernel_ab.BaseEntry(_Lib(), src, "select_k_launch")
+        self.names = self.entry.names
+
+    def __call__(self, **values):
+        self.calls.append({n: values[n] for n in self.names})
+
+
+def test_k3_entries_are_read_by_name():
+    old = _Recorder(K3_OLD)
+    assert old.names == ["keys", "ids", "id_rows", "id_base", "pairs", "B", "W", "k", "col_lo",
+                         "col_hi", "slice", "out_d", "out_i", "out_pairs", "stream"]
+    new = _Recorder((_build.CSRC / "select_k.cu").read_text())
+    assert new.names == ["keys", "ids", "id_rows", "id_base", "pairs", "prior_d", "prior_i", "B",
+                         "W", "k", "col_lo", "col_hi", "slice", "route", "out_d", "out_i",
+                         "out_pairs", "stream"]
+
+
+@pytest.mark.parametrize("b,w,k,rounds", [(4096, 131_072, 32, 1), (1, 131_072, 32, 2),
+                                          (512, 390_656, 32, 2)])
+def test_base_select_drives_the_parents_rounds(monkeypatch, b, w, k, rounds):
+    # the parent's wrapper: the rounds of _plan, each later one over the
+    # words of the one before, the column window on the first round only
+    monkeypatch.setattr(kernel_ab, "_stream", lambda: 7)
+    base = _Recorder(K3_OLD)
+    keys = torch.zeros((b, w), device="meta")
+    _, n = kernel_ab.base_select(base, keys, k, id_base=3, cols=(5, w - 5))
+    assert n == rounds == len(base.calls)
+    first, last = base.calls[0], base.calls[-1]
+    assert first["pairs"] is None and first["id_base"] == 3
+    assert (first["col_lo"], first["col_hi"]) == (5, w - 5)
+    assert (last["out_pairs"] is None) and last["out_d"] is not None
+    if rounds > 1:
+        assert last["keys"] is None and last["pairs"] is not None and last["col_lo"] == 0
+
+
+def test_base_merge_tile_is_two_selections(monkeypatch):
+    monkeypatch.setattr(kernel_ab, "_stream", lambda: 7)
+    base = _Recorder(K3_OLD)
+    best_d, best_i = torch.zeros((64, 32), device="meta"), torch.zeros(
+        (64, 32), dtype=torch.int32, device="meta")
+    _, n = kernel_ab.base_merge_tile(base, best_d, best_i, torch.zeros((64, 4096), device="meta"), 9)
+    assert n == 2 and base.calls[0]["id_base"] == 9 and base.calls[1]["W"] == 64
+    assert base.calls[1]["ids"] is not None  # the merge reads the concatenated ids
+
+
+def test_k3_seeded_cases_and_the_k3_baseline_option(monkeypatch, tmp_path):
+    from flatnav_tpu_torch.ops.select_k import K_MAX
+
+    for name, (b, w, k, ids, keys) in kernel_ab.K3_SEEDED.items():
+        assert name not in kernel_ab.K3_CASES and ids == "implicit" and 1 <= k <= K_MAX
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    # k3 takes a baseline but does not need one; both stop without a card
+    assert kernel_ab.main(["--cases", "k3", "--baseline", str(tmp_path)]) == 2
+    assert kernel_ab.main(["--cases", "k3", "--k3", "merge-tile,build"]) == 2
+
+
+@pytest.mark.parametrize("b,w,k,routes", [(8192, 8192, 64, ["warp"]), (16384, 196, 8, ["warp"]),
+                                          (4096, 131_072, 32, ["block"]),
+                                          (1, 131_072, 32, ["warp", "warp"]),
+                                          (512, 390_656, 32, ["block", "warp"]),
+                                          (1024, 32_768, 1024, ["block", "block"])])
+def test_base_select_passes_the_wrappers_route(monkeypatch, b, w, k, routes):
+    # a baseline of this generation is driven through the wrapper's own
+    # rounds, so it takes the route the wrapper would pick on each round
+    from flatnav_tpu_torch.ops.select_k import ROUTES
+
+    monkeypatch.setattr(kernel_ab, "_stream", lambda: 7)
+    new = _Recorder((_build.CSRC / "select_k.cu").read_text())
+    _, n = kernel_ab.base_select(new, torch.zeros((b, w), device="meta"), k)
+    assert n == len(routes) and [c["route"] for c in new.calls] == [ROUTES[r] for r in routes]
+    assert all(c["prior_d"] is None and c["prior_i"] is None and c["stream"] == 7
+               for c in new.calls)
+
+
+@pytest.mark.parametrize("ids,extra", [("implicit", 0), ("row", 4), ("full", 4)])
+@pytest.mark.parametrize("prior", [False, True])
+def test_select_bound_counts_the_bytes_the_selection_needs(ids, extra, prior):
+    # each key once, the result once, a prior once, and only the returned
+    # ids of an id tensor or row (the rest need not be read)
+    from flatnav_tpu_torch.bench.measure import HBM_BYTES_PER_S, select_bound
+
+    b, w, k = 4096, 62_592, 32
+    ms, by = select_bound(b, w, k, ids=ids, prior=prior)
+    nbytes = b * w * 4 + b * k * 8 + (b * k * 8 if prior else 0) + b * k * extra
+    assert by == "bytes" and ms == pytest.approx(nbytes / HBM_BYTES_PER_S * 1e3, rel=1e-12)
+    with pytest.raises(ValueError):
+        select_bound(b, w, k, ids="some")
+
+
+def test_phase_b_bound_is_the_keys_and_the_result():
+    from flatnav_tpu_torch.bench.measure import select_bound
+
+    # fused_knn's phase B at 1M x 128: the keys alone give 0.3061 ms
+    ms, _ = select_bound(4096, 62_592, 32, ids="full")
+    assert ms == pytest.approx(0.3066, abs=1e-4)

@@ -10,7 +10,10 @@ K2 and 8-bit K1 must be bit-equal to the plain version. bf16 K1 sums its
 products in another order than cuBLAS, so its minima agree within 1e-5 of
 the largest key magnitude and its ids on >= 99% of buckets. K1 has four
 variants chosen by shape and type ("wgmma", "wgmma_wide", "wgmma_int8" and
-"mma"); each case states which one it must take.
+"mma"); each case states which one it must take. K3 must be bit-equal on
+both routes ("block": bulk copies, also of rows off a 16-byte boundary;
+"warp": a warp a row), seeded with a prior or not, and the scans must
+return what the two-launch merge they replaced returns.
 
 The product-quantized index and the graph reordering hold no kernel of their
 own; their cases run the same call on the card and with device="cpu" at a
@@ -741,3 +744,134 @@ def test_scans_select_through_k3_on_card(cuda, rng, dtype):
     assert select_k.launches > before
     cd, ci = pq_scan_knn(codes, tables, 10, tile_size=1024, rerank=64)
     assert torch.equal(gd.cpu(), cd)  # ADC sums of small integers are exact
+
+
+# ---- K3's routes: bulk copies (block), a warp a row, the prior
+
+
+def _k3_check(keys, k, **kw):
+    from flatnav_tpu_torch.ops.select_k import select_k, select_k_plain
+
+    before = select_k.launches
+    got = select_k(keys, k, **kw)
+    assert select_k.launches > before
+    assert _k3_equal(got, select_k_plain(keys, k, **kw))
+
+
+def _at_offset(x, off):
+    """x [B, W] copied into a flat buffer at `off` floats: contiguous, with
+    data_ptr() % 16 == 4 * off"""
+    flat = torch.empty(x.numel() + 4, dtype=x.dtype, device=x.device)
+    y = flat[off : off + x.numel()].view(x.shape)
+    y.copy_(x)
+    assert y.is_contiguous() and y.data_ptr() % 16 == 4 * off
+    return y
+
+
+@pytest.mark.parametrize("off", [0, 1, 2, 3])
+@pytest.mark.parametrize("w", [8197, 20001, 131071])
+@pytest.mark.parametrize("kind", ["normal", "ties"])
+def test_select_k_block_route_unaligned_rows(cuda, rng, off, w, kind):
+    # W % 4 != 0: every row but the first starts off a 16-byte boundary, and
+    # the tensor itself starts at 4 * off bytes past one
+    from flatnav_tpu_torch.ops.select_k import _route
+
+    b = 24
+    keys = _at_offset(_k3_keys(rng, kind, b, w, cuda), off)
+    for k in (10, 100):
+        assert _route(k, w) == "block"
+        _k3_check(keys, k, id_base=5, cols=(3, w - 2))
+        _k3_check(keys, k, ids=_at_offset(torch.from_numpy(
+            rng.integers(0, 1 << 31, (b, w)).astype(np.int32)).to(cuda), (off + 1) % 4))
+
+
+@pytest.mark.parametrize("w", [7, 196, 8191, 8192, 8193])
+@pytest.mark.parametrize("k", [1, 8, 32, 33, 63, 64, 65])
+def test_select_k_warp_route_thresholds(cuda, rng, w, k):
+    from flatnav_tpu_torch.ops.select_k import WARP_K, WARP_MAX_W, _route
+
+    k = min(k, w)
+    assert (_route(k, w) == "warp") == (k <= WARP_K and w <= WARP_MAX_W)
+    for kind in ("normal", "ties", "inf"):
+        keys = _at_offset(_k3_keys(rng, kind, 37, w, cuda), w % 4)
+        _k3_check(keys, k, ids=torch.from_numpy(
+            rng.integers(0, 60, (1, w)).astype(np.int32)).to(cuda))
+        _k3_check(keys, k, id_base=11, cols=(w // 5, w - w // 6))
+
+
+def _prior(rng, b, r, cuda, kind):
+    """a running shortlist [b, r]: sorted finite pairs, the (+inf, id 0)
+    padding a scan starts from, or a mix of the two"""
+    d = np.sort(rng.standard_normal((b, r)).astype(np.float32), axis=1)
+    i = rng.integers(0, 1 << 20, (b, r)).astype(np.int32)
+    if kind == "pad":
+        d[:], i[:] = np.inf, 0
+    elif kind == "mixed":
+        d[:, r // 2 :], i[:, r // 2 :] = np.inf, 0
+    return torch.from_numpy(d).to(cuda), torch.from_numpy(i).to(cuda)
+
+
+@pytest.mark.parametrize("b,w,r", [(4096, 64, 32), (16384, 196, 8), (300, 8192, 64),
+                                   (64, 65536, 10), (200, 32768, 64), (16, 131072, 32),
+                                   (1, 131072, 32), (3, 100, 150), (8, 20000, 1024),
+                                   (2, 9000, "K_MAX"), (1, 390656, 1024)])
+@pytest.mark.parametrize("kind", ["pad", "mixed", "finite"])
+def test_select_k_prior_seeded(cuda, rng, b, w, r, kind):
+    from flatnav_tpu_torch.ops.select_k import K_MAX
+
+    r = K_MAX if r == "K_MAX" else r
+    keys = _k3_keys(rng, "normal", b, w, cuda)
+    prior = _prior(rng, b, r, cuda, kind)
+    _k3_check(keys, r, id_base=0, cols=(w // 9, w - w // 8), prior=prior)
+    # integer keys with thousands of ties, the prior's pairs repeated in the tile
+    keys = _k3_keys(rng, "ties", b, w, cuda)
+    pd = keys[:, : min(r, w)].clone()
+    pi = torch.arange(min(r, w), dtype=torch.int32, device=cuda).expand(b, -1).contiguous()
+    if r > w:
+        pd = torch.cat([pd, torch.full((b, r - w), float("inf"), device=cuda)], 1)
+        pi = torch.cat([pi, torch.zeros((b, r - w), dtype=torch.int32, device=cuda)], 1)
+    _k3_check(keys, r, prior=(pd.contiguous(), pi.contiguous()))
+
+
+def _merge_tile_two_launch(best_d, best_i, keys, start, cols):
+    """The parent's `_merge_tile`: the tile's r smallest, then the r
+    smallest of the 2r."""
+    from flatnav_tpu_torch.ops.select_k import select_k
+
+    r = best_d.shape[1]
+    tile_d, tile_i = select_k(keys, min(r, keys.shape[1]), id_base=start, cols=cols)
+    return select_k(torch.cat([best_d, tile_d], 1), r, ids=torch.cat([best_i, tile_i], 1))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.uint8])
+def test_scans_equal_the_two_launch_merge_on_card(cuda, rng, dtype, monkeypatch):
+    from flatnav_tpu_torch.ops import distances as dist_mod
+    from flatnav_tpu_torch.ops.distances import fast_knn
+    from flatnav_tpu_torch.ops.select_k import select_k
+    from flatnav_tpu_torch.quantization import pq as pq_mod
+
+    if dtype == np.uint8:
+        data = torch.from_numpy(rng.integers(0, 4, (20000, 16)).astype(np.uint8)).to(cuda)
+        q = torch.from_numpy(rng.integers(0, 4, (300, 16)).astype(np.uint8)).to(cuda)
+    else:
+        data = torch.from_numpy(rng.standard_normal((20000, 16)).astype(np.float32)).to(cuda)
+        q = torch.from_numpy(rng.standard_normal((300, 16)).astype(np.float32)).to(cuda)
+    codes = torch.from_numpy(rng.integers(0, 16, (20000, 4)).astype(np.uint8)).to(cuda)
+    tables = torch.from_numpy(rng.integers(0, 6, (300, 4, 16)).astype(np.float32)).to(cuda)
+    calls = {
+        "brute": lambda: dist_mod.brute_force_knn(data, q, 10, tile_size=4096, n_valid=19000),
+        "fast": lambda: fast_knn(data, q, 10, tile_size=4096, rerank=40),
+        "pq": lambda: pq_mod.pq_scan_knn(codes, tables, 10, tile_size=4096, rerank=100),
+    }
+    new, launches = {}, {}
+    for name, call in calls.items():
+        before = select_k.launches
+        new[name] = call()
+        launches[name] = select_k.launches - before
+    monkeypatch.setattr(dist_mod, "_merge_tile", _merge_tile_two_launch)
+    monkeypatch.setattr(pq_mod, "_merge_tile", _merge_tile_two_launch)
+    for name, call in calls.items():
+        before = select_k.launches
+        old = call()
+        assert select_k.launches - before == 2 * launches[name], name  # one launch a tile now
+        assert _k3_equal(new[name], old), name

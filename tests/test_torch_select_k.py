@@ -7,11 +7,15 @@ the CPU, where `select_k` runs its plain version.
 - against `jax.lax.approx_min_k` on the CPU, where it is exact: the values
   are equal, and the ids wherever the keys are distinct;
 - the scans rebuilt on it (`brute_force_knn`, `fast_knn`, `pq_scan_knn`:
-  each tile's k smallest, then a merge with the running k) equal, bit for
-  bit, the form they had before: one selection over [running k | masked
-  tile], kept here as the reference (`_*_cat`);
-- the wrapper's contract (what it refuses, on either device) and its plan
-  of launches, and that every caller's k stays within K_MAX.
+  one selection a tile seeded with the running k) equal, bit for bit, the
+  form they had before: one selection over [running k | masked tile],
+  kept here as the reference (`_*_cat`);
+- `prior=` against the two-step merge it replaced (the tile's k, then the
+  k of the concatenated 2k) and a numpy oracle, on (+inf, id 0) padding,
+  repeated pairs, k past the window, windows at both ends and ties;
+- the wrapper's contract (what it refuses, on either device, the prior's
+  checks included), its plan of launches and its route, and that every
+  caller's k stays within K_MAX.
 
 The kernel itself runs only on the card: tests/test_torch_kernels_gpu.py.
 """
@@ -373,3 +377,110 @@ def test_an_expanded_id_row_is_one_row():
     want = select_k(keys, 20, ids=row[None, :])
     for ids in (row, row.expand(4, 300), row[None, :].expand(4, 300)):
         assert all(torch.equal(a, b) for a, b in zip(select_k(keys, 20, ids=ids), want))
+
+
+# ---- the prior: a scan's running shortlist seeded into the selection
+
+
+def _two_step(best_d, best_i, keys, start, cols):
+    """The scans' merge before the prior existed: the tile's r smallest,
+    then the r smallest of the concatenated 2r."""
+    r = best_d.shape[1]
+    tile_d, tile_i = select_k(keys, min(r, keys.shape[1]), id_base=start, cols=cols)
+    return select_k(torch.cat([best_d, tile_d], 1), r, ids=torch.cat([best_i, tile_i], 1))
+
+
+def _oracle_prior(pd, pi, keys, k, start, cols):
+    """numpy: the prior's pairs and the masked tile's, concatenated, by
+    lexsort over (monotone bits of key + 0.0, id)."""
+    b, w = keys.shape
+    col = np.arange(w)
+    x = np.where((col >= cols[0]) & (col < cols[1]), keys, np.float32(np.inf))
+    x = np.concatenate([pd, x], 1).astype(np.float32) + np.float32(0.0)
+    ids = np.concatenate([pi, np.broadcast_to(start + col, (b, w)).astype(np.int32)], 1)
+    bits = x.view(np.int32).astype(np.int64)
+    bits = np.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    order = np.stack([np.lexsort((ids[r], bits[r]))[:k] for r in range(b)])
+    return np.take_along_axis(x, order, 1), np.take_along_axis(ids, order, 1)
+
+
+# (prior kind, W, r, cols): the (+inf, id 0) padding a scan starts from; a
+# prior whose pairs the tile repeats; r wider than the tile's window; a
+# window that cuts both ends; integer keys with thousands of ties
+PRIOR_CASES = [("pad", 500, 20, (0, 500)), ("repeat", 300, 16, (0, 300)),
+               ("finite", 200, 64, (150, 180)), ("finite", 900, 10, (37, 811)),
+               ("ties", 5000, 32, (0, 5000)), ("pad", 128, 150, (0, 100)),
+               ("mixed", 777, 40, (5, 700))]
+
+
+@pytest.mark.parametrize("kind,w,r,cols", PRIOR_CASES)
+def test_prior_equals_the_two_step_merge_and_lexsort(kind, w, r, cols):
+    rng = np.random.default_rng(zlib.crc32(f"prior {kind} {w} {r}".encode()))
+    b, start = 6, 4000
+    keys = (rng.integers(0, 8, (b, w)) if kind == "ties"
+            else rng.standard_normal((b, w))).astype(np.float32)
+    pd = np.sort(rng.standard_normal((b, r)).astype(np.float32) - 1.0, axis=1)
+    pi = rng.integers(0, 10_000, (b, r)).astype(np.int32)
+    if kind in ("pad", "mixed"):
+        h = 0 if kind == "pad" else r // 2
+        pd[:, h:], pi[:, h:] = np.inf, 0
+    elif kind == "repeat":  # the tile's own pairs, already in the running r
+        pd = np.sort(keys[:, :r], axis=1)
+        pi = (start + np.argsort(keys[:, :r], axis=1, kind="stable")).astype(np.int32)
+    elif kind == "ties":
+        pd = rng.integers(0, 3, (b, r)).astype(np.float32)
+        pi = rng.integers(start, start + 50, (b, r)).astype(np.int32)
+    t = torch.from_numpy
+    got = select_k(t(keys), r, id_base=start, cols=cols, prior=(t(pd), t(pi)))
+    assert _same(got, _two_step(t(pd), t(pi), t(keys), start, cols))
+    want_d, want_i = _oracle_prior(pd, pi, keys, r, start, cols)
+    assert np.array_equal(got[0].numpy().view(np.int32), want_d.view(np.int32))
+    assert np.array_equal(got[1].numpy(), want_i)
+    # _merge_tile is the seeded selection
+    assert _same(td._merge_tile(t(pd), t(pi), t(keys), start, cols), got)
+
+
+def test_prior_with_full_and_row_ids():
+    rng = np.random.default_rng(31)
+    b, w, r = 4, 400, 25
+    keys = torch.from_numpy(rng.integers(0, 5, (b, w)).astype(np.float32))
+    prior = (torch.from_numpy(rng.integers(0, 5, (b, r)).astype(np.float32)),
+             torch.from_numpy(rng.integers(0, 100, (b, r)).astype(np.int32)))
+    for ids in (torch.from_numpy(rng.integers(0, 100, (b, w)).astype(np.int32)),
+                torch.from_numpy(rng.integers(0, 100, (1, w)).astype(np.int32))):
+        want = select_k_plain(torch.cat([prior[0], keys], 1), r,
+                              ids=torch.cat([prior[1], ids.expand(b, w)], 1))
+        assert _same(select_k(keys, r, ids=ids, prior=prior), want)
+
+
+def test_wrapper_checks_the_prior():
+    keys = torch.zeros((3, 100))
+    pd, pi = torch.zeros((3, 8)), torch.zeros((3, 8), dtype=torch.int32)
+    bad = {
+        "not a pair": (TypeError, lambda: select_k(keys, 8, prior=pd)),
+        "float64 keys": (TypeError, lambda: select_k(keys, 8, prior=(pd.double(), pi))),
+        "int64 ids": (TypeError, lambda: select_k(keys, 8, prior=(pd, pi.long()))),
+        "width != k": (ValueError, lambda: select_k(keys, 7, prior=(pd, pi))),
+        "rows != B": (ValueError, lambda: select_k(keys, 8, prior=(pd[:2], pi[:2]))),
+        "k > K_MAX": (ValueError, lambda: select_k(
+            torch.zeros((1, 10)), K_MAX + 1, prior=(torch.zeros((1, K_MAX + 1)),
+                                                    torch.zeros((1, K_MAX + 1), dtype=torch.int32)))),
+        "another device": (ValueError, lambda: select_k(keys, 8, prior=(pd.to("meta"), pi))),
+        "no columns": (ValueError, lambda: select_k(torch.zeros((3, 0)), 8, prior=(pd, pi))),
+    }
+    for what, (err, call) in bad.items():
+        with pytest.raises(err):
+            call()
+            pytest.fail(what)
+    # with a prior k may pass W: the prior alone holds k pairs
+    d, i = select_k(torch.zeros((3, 4)), 8, prior=(pd, pi))
+    assert d.shape == (3, 8) and i[:, 4:].eq(0).all()
+
+
+@pytest.mark.parametrize("k,sl,route", [(1, 7, "warp"), (8, 196, "warp"), (64, 8192, "warp"),
+                                        (65, 8192, "block"), (64, 8193, "block"),
+                                        (32, 131072, "block"), (1024, 64, "block"),
+                                        (32, 4096, "warp")])
+def test_route_choice(k, sl, route):
+    assert sk._route(k, sl) == route
+    assert (route == "warp") == (k <= sk.WARP_K and sl <= sk.WARP_MAX_W)
