@@ -15,12 +15,14 @@ Phases, in order; any failure raises and the script exits nonzero:
      uint8/int8 tables and within 1e-5 of the key magnitude on bf16 tables
      (ids equal wherever a bucket's best two keys differ by more), at
      d in {37, 64, 128, 256} with bf16 queries, 8-bit queries of 8-bit
-     tables at d in {64, 128, 256}, and bf16 also at d in {100, 960} as
-     fused_knn hands them over (d=100 padded to 104), L2/IP, N not a
-     multiple of the tile and n_valid < N; each case must take the variant
-     the wrapper's rule names: "wgmma" for bf16 at 64 <= d <= 384 (d=104
-     included), "wgmma_wide" at d=960, "wgmma_int8" for 8-bit queries of
-     8-bit rows, "mma" for the rest. K3 select_k bit-equal (keys by their
+     tables at d in {64, 100, 128, 256}, and bf16 also at d in {25, 50, 100,
+     960} as fused_knn hands them over (padded to 32, 56 and 104), L2/IP, N
+     not a multiple of the tile and n_valid < N; each case must take the
+     variant the wrapper's rule names: "wgmma_narrow" for bf16 at d <= 32,
+     "wgmma" for bf16 at 32 < d <= 384 (d=37 padded to 40, 56, 104),
+     "wgmma_wide" at d=960, "wgmma_int8" for 8-bit queries of 8-bit rows at
+     d % 16 == 0, "wgmma_int8_packed" for them at d=100, "mma" for the rest
+     (8-bit rows with bf16 queries). K3 select_k bit-equal (keys by their
      bits, ids) on K3_CASES: k in {1, 7, 8, 10, 32, 50, 64, 1024, K_MAX}, rows
      of 7 to 390,656 columns, B from 1 to 16,384, full / row / implicit ids
      with column windows, keys with +-0, +-inf and NaN of both signs, whole
@@ -121,11 +123,21 @@ Phases, in order; any failure raises and the script exits nonzero:
      on both uint8 runs, and never "mma"; each timed and held against its
      plain version at its run's shapes, beside a bf16 torch.matmul (and
      torch._int_mm on the uint8 tables); K2 at the d=100 / d=960 hops.
+  12. the reference's last three datasets at their shapes, on synthetic data
+     from a seed (NEW_SHAPES): fused_knn (K=10, rerank 32, 4,096 queries)
+     over an int8 10M x 100 L2 table (MS SPACEV's 10M slice) and 1,183,514
+     unit rows of d=25 and d=50 under IP (GloVe-25, GloVe-50). Counts zeroed
+     before each call and read after it: K1 must take "wgmma_int8_packed",
+     "wgmma_narrow" and "wgmma" alone, never "mma"; recall@10 against
+     brute_force_knn on the first 256 queries is held to NEW_FLOOR; K1 alone
+     at each shape is held against its plain version (bit-equal on int8) and
+     timed beside its bound, a bf16 torch.matmul and (int8) torch._int_mm.
 
 The line before the last is one JSON object with each kernel's launches,
 error against its plain version, times and bound (a kernel with several
 variants or routes has an entry for each that the run times: K1's
-"wgmma_wide" and "wgmma_int8", K3's "warp"); the last line is
+"wgmma_wide", "wgmma_int8", "wgmma_int8_packed" and "wgmma_narrow", K3's
+"warp"); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -411,15 +423,18 @@ def phase_kernels(rng):
 
     k1_err = 0.0
     t, L = 2048, 16
-    # (d, row type, 8-bit queries?, the variant the wrapper must pick)
-    cases = [(d, dtype, False, "wgmma" if dtype == torch.bfloat16 and d >= 64 else "mma")
+    # (d, row type, 8-bit queries?, the variant the wrapper must pick);
+    # bf16 d=37 reaches the kernel padded to 40
+    cases = [(d, dtype, False, "wgmma" if dtype == torch.bfloat16 else "mma")
              for d in (37, 64, 128, 256) for dtype in (torch.uint8, torch.int8, torch.bfloat16)]
-    # 8-bit queries of an 8-bit table (the BigANN runners'), and the
-    # north-star widths as fused_knn hands them over: angular's d=100 padded
-    # to 104, gist's d=960
-    cases += [(d, dtype, True, "wgmma_int8") for d in (64, 128, 256)
-              for dtype in (torch.uint8, torch.int8)]
-    cases += [(100, torch.bfloat16, False, "wgmma"), (960, torch.bfloat16, False, "wgmma_wide")]
+    # 8-bit queries of an 8-bit table (the BigANN runners', MS SPACEV's
+    # d=100), and the widths of the north star and of GloVe as fused_knn
+    # hands them over: 25, 50 and angular's 100 padded to 32, 56 and 104,
+    # gist's d=960
+    cases += [(d, dtype, True, "wgmma_int8" if d % 16 == 0 else "wgmma_int8_packed")
+              for d in (64, 100, 128, 256) for dtype in (torch.uint8, torch.int8)]
+    cases += [(25, torch.bfloat16, False, "wgmma_narrow"), (50, torch.bfloat16, False, "wgmma"),
+              (100, torch.bfloat16, False, "wgmma"), (960, torch.bfloat16, False, "wgmma_wide")]
     for d, dtype, q8, want in cases:
         for metric in (MetricType.L2, MetricType.IP):
             n, nlim, qc = 10000, 9000, 100  # n not a multiple of t
@@ -1476,6 +1491,74 @@ def phase_northstar():
     return out
 
 
+#: phase 12: (name, rows, d, row type, metric, the K1 variant fused_knn
+#: must take alone); MS SPACEV's 10M slice and GloVe-25 / -50 at the
+#: reference datasets' shapes, types and metrics
+NEW_SHAPES = [
+    ("spacev-10M", 10_000_000, 100, "int8", "l2", "wgmma_int8_packed"),
+    ("glove-25", 1_183_514, 25, "float32", "ip", "wgmma_narrow"),
+    ("glove-50", 1_183_514, 50, "float32", "ip", "wgmma"),
+]
+NEW_QUERIES = 4096
+#: recall@10 of fused_knn (rerank 32) against brute_force_knn, first 256
+#: queries: buckets of L=256 / 32 rows lose a true neighbour only on a
+#: collision of two in one bucket or (bf16) a key error past the 32nd bucket
+NEW_FLOOR = 0.98
+
+
+def phase_new_shapes():
+    """Phase 12 (see the module's docstring). -> {name: {"variant",
+    "launches", "recall", "seconds", "kernel"}}, "kernel" being
+    `_northstar.k1_times` at that shape."""
+    import torch
+
+    from flatnav_tpu_torch.bench._northstar import k1_times
+    from flatnav_tpu_torch.ops import MetricType, brute_force_knn, fused_knn
+    from flatnav_tpu_torch.ops.fused_scan import scan_buckets
+
+    dev = torch.device("cuda")
+    out = {}
+    for i, (name, n, d, kind, metric, want) in enumerate(NEW_SHAPES):
+        g = torch.Generator(device=dev).manual_seed(0x5BACE + i)
+        m = MetricType.L2 if metric == "l2" else MetricType.IP
+        if kind == "int8":
+            data = torch.randint(-128, 128, (n, d), dtype=torch.int8, device=dev, generator=g)
+            q = torch.randint(-128, 128, (NEW_QUERIES, d), dtype=torch.int8, device=dev,
+                              generator=g)
+        else:
+            data = torch.randn((n, d), device=dev, generator=g)
+            data /= data.norm(dim=1, keepdim=True)
+            q = torch.randn((NEW_QUERIES, d), device=dev, generator=g)
+            q /= q.norm(dim=1, keepdim=True)
+        torch.cuda.synchronize()
+        scan_buckets.launches = 0
+        scan_buckets.variants = dict.fromkeys(scan_buckets.variants, 0)
+        t0 = time.perf_counter()
+        fd, fi = fused_knn(data, q, 10, m, rerank=32)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        variants = dict(scan_buckets.variants)
+        check(variants[want] > 0 and sum(variants.values()) == variants[want],
+              f"{name}: fused_knn launched K1's {want} variant alone: {variants}")
+        check(tuple(fd.shape) == (NEW_QUERIES, 10) and bool(torch.isfinite(fd).all()),
+              f"{name}: fused_knn gave finite distances of shape ({NEW_QUERIES}, 10)")
+        _, truth = brute_force_knn(data, q[:256], 10, m)
+        rec = recall(fi[:256].cpu().numpy(), truth.cpu().numpy())
+        check(rec >= NEW_FLOOR, f"{name}: fused recall@10 {rec} >= {NEW_FLOOR}")
+        kernel = k1_times(data, q, m)
+        check(kernel["variant"] == want, f"{name}: K1 timed on {want}")
+        # int8 rows were held bit-equal inside k1_times; bf16 ones here
+        check(kernel["max_abs_err"] <= 1e-5 * kernel["key_max"],
+              f"{name}: K1 within 1e-5 of its largest key of the plain version")
+        print(f"{name} ({n} x {d} {kind}, {metric}): fused_knn {sec:.3f} s (first call), "
+              f"recall@10 {rec:.4f}, K1 launches {variants}; K1 alone: {json.dumps(kernel)}")
+        out[name] = {"variant": want, "launches": variants[want], "recall": rec, "seconds": sec,
+                     "kernel": kernel}
+        del data, q, fd, fi, truth
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     quick = "--quick" in sys.argv[1:]
     import torch
@@ -1556,6 +1639,26 @@ def main() -> int:
         mark("6b pq scan")
         north = phase_northstar()
         mark("11 north star")
+        new = phase_new_shapes()
+        mark("12 spacev and glove")
+        for variant in ("wgmma_int8_packed", "wgmma_narrow"):
+            runs = {r: v for r, v in new.items() if v["variant"] == variant}
+            timed_in = next(iter(runs.values()))["kernel"]
+            kernels.append({
+                "name": f"scan_buckets {variant}", "route": "cuda", "variant": variant,
+                "source": "flatnav_tpu_torch/csrc/fused_scan.cu",
+                "replaces": "flatnav_tpu/ops/fused_scan.py:159",
+                "launches": sum(v["launches"] for v in runs.values()),
+                "launches_by_run": {r: v["launches"] for r, v in runs.items()},
+                "max_abs_err": max(v["kernel"]["max_abs_err"] for v in runs.values()),
+                **{x: timed_in[x] for x in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                "library_ms": timed_in["int_mm_ms"] or timed_in["matmul_bf16_ms"],
+                "library": "torch._int_mm" if timed_in["int_mm_ms"] else "torch.matmul bf16",
+                "matmul_bf16_ms": timed_in["matmul_bf16_ms"],
+                "timed_at": {x: timed_in[x] for x in ("qc", "n", "d", "rows", "queries", "L", "T")},
+            })
+        k1["launches_glove_50"] = new["glove-50"]["launches"]
+        k1["glove_50"] = new["glove-50"]["kernel"]
         for variant, run_names in (("wgmma_wide", ("gist",)),
                                    ("wgmma_int8", ("bigann 10M", "bigann 100M"))):
             timed_in = north[run_names[-1]]["kernels"]["scan_buckets"]

@@ -330,15 +330,19 @@ def k1_times(dataset: torch.Tensor, queries: torch.Tensor, metric: MetricType,
 def int8_operands(q: torch.Tensor, rows: torch.Tensor):
     """int8 copies of 8-bit queries and rows for `torch._int_mm`: uint8
     values shifted by 128 (x ^ 0x80 read as int8 is x - 128), rows padded
-    with zero rows to a multiple of 8 (its column rule)."""
-    n8 = -(-rows.shape[0] // 8) * 8
-    rows8 = torch.zeros((n8, rows.shape[1]), dtype=torch.int8, device=rows.device)
-    if rows.dtype == torch.uint8:
-        for lo in range(0, rows.shape[0], 1 << 24):
-            rows8[lo : lo + (1 << 24)] = (rows[lo : lo + (1 << 24)] ^ 128).view(torch.int8)
-        return (q ^ 128).view(torch.int8), rows8
-    rows8[: rows.shape[0]] = rows
-    return q, rows8
+    with zero rows and both with zero columns to multiples of 8 (its rule
+    for the inner and the output width; MS SPACEV's d = 100 becomes 104:
+    zero columns add 0 to every product)."""
+    n, d = rows.shape
+    n8, d8 = -(-n // 8) * 8, -(-d // 8) * 8
+    rows8 = torch.zeros((n8, d8), dtype=torch.int8, device=rows.device)
+    q8 = torch.zeros((q.shape[0], d8), dtype=torch.int8, device=q.device)
+    shift = rows.dtype == torch.uint8
+    for lo in range(0, n, 1 << 24):
+        part = rows[lo : lo + (1 << 24)]
+        rows8[lo : lo + part.shape[0], :d] = (part ^ 128).view(torch.int8) if shift else part
+    q8[:, :d] = (q ^ 128).view(torch.int8) if shift else q
+    return q8, rows8
 
 
 def restore_launches(saved: dict) -> None:

@@ -26,14 +26,24 @@ Cases, at the main path's shapes, the 1M scan's and the north-star shapes:
   K1 (`--k1`, `K1_CASES`): 1M (4096 queries x 1,000,000 rows, d=128 bf16,
   T=2048, L=16), path (1024 x 108,192 rows, 100,000 valid), gist (d=960),
   angular (d=100, padded to 104 for this checkout), u8-10M (uint8 rows and
-  queries, 10,000,000 rows, T=32768, L=256) and u8-100M (512 queries).
-  An entry without a query type (the parent's) gets bf16 queries and
-  unpadded rows, as the parent's `fused_knn` gave it; one with `q_type`
-  gets this checkout's operands and variant, so a copy of this source
-  with a constant changed (e.g. `wide_scan::CS`) is timed against this one.
-Each line gives the bound (`measure.gather_bound` / `measure.scan_bound`)
-and, for K1, the plain version's time and the time of torch.matmul bf16
-(and torch._int_mm for 8-bit rows) on the same inputs.
+  queries, 10,000,000 rows, T=32768, L=256), u8-100M (512 queries),
+  u8-10M-bf16q (u8-10M with bf16 queries: "mma"), spacev-10M and
+  spacev-100M (MS SPACEV's int8 d=100, L2, as u8-10M / u8-100M) and
+  glove-25 / glove-50 (1,183,514 normalised rows, IP, 4096 queries, padded
+  to 32 / 56 columns for the kernel; T=4096, L=32). T and L are those
+  `fused_knn` picks.
+  An entry without a query type (an older one) gets bf16 queries and unpadded
+  rows, as its `fused_knn` gave it; one with `q_type` gets this
+  checkout's operands and variant, so a copy of this source with a
+  constant changed (e.g. `wide_scan::CS`, `wgmma_scan::STAGES`) is timed
+  against this one. Where it refuses that variant (a parent that predates
+  it), it gets what its own `fused_knn` gave its "mma": the same rows and
+  bf16 queries. `--also VARIANT,...` also times this checkout's kernel
+  launched as each named variant whose rule admits the case's operands.
+Each line gives the bound (`measure.gather_bound` / `measure.scan_bound`,
+at the table's d before any padding) and, for K1, the plain version's time
+and the time of torch.matmul bf16 (and torch._int_mm for 8-bit rows, with
+d padded to a multiple of 8) on the same inputs.
 
 K3 (`--cases k3`) at its callers' shapes (`K3_CASES`, and `K3_SEEDED`:
 a scan's tile merged into its running k; `--k3` picks them): `select_k`
@@ -66,6 +76,7 @@ from flatnav_tpu_torch import _build
 from flatnav_tpu_torch.bench.measure import card, gather_bound, scan_bound, select_bound, timed
 from flatnav_tpu_torch.ops.distances import squared_norms
 from flatnav_tpu_torch.bench._northstar import int8_operands
+from flatnav_tpu_torch.ops import fused_scan
 from flatnav_tpu_torch.ops.fused_scan import (
     _ROW_TYPES,
     VARIANTS,
@@ -181,85 +192,124 @@ def k2_cases(base: BaseEntry, rng, reps: int) -> None:
                   f"{gathered / (sum(ts) / len(ts) * 1e-3) / 1e12:.2f} TB/s")
 
 
-#: K1 cases: label -> (queries, rows, valid rows, d, row type, T, L). The
-#: north-star shapes are the first query chunk `fused_knn` gives K1 there.
+#: K1 cases: label -> (queries, rows, valid rows, d, row type, query type,
+#: T, L, metric). The north-star shapes are the first query chunk
+#: `fused_knn` gives K1 there.
 K1_CASES = {
-    "1M": (4096, 1_000_000, 1_000_000, 128, torch.bfloat16, 2048, 16),
-    "path": (1024, 108_192, 100_000, 128, torch.bfloat16, 2048, 16),
-    "gist": (4096, 1_000_000, 1_000_000, 960, torch.bfloat16, 2048, 16),
-    "angular": (4096, 1_000_000, 1_000_000, 100, torch.bfloat16, 2048, 16),
-    "u8-10M": (4096, 10_000_000, 10_000_000, 128, torch.uint8, 32768, 256),
-    "u8-100M": (512, 100_000_000, 100_000_000, 128, torch.uint8, 32768, 256),
+    "1M": (4096, 1_000_000, 1_000_000, 128, torch.bfloat16, torch.bfloat16, 2048, 16, "l2"),
+    "path": (1024, 108_192, 100_000, 128, torch.bfloat16, torch.bfloat16, 2048, 16, "l2"),
+    "gist": (4096, 1_000_000, 1_000_000, 960, torch.bfloat16, torch.bfloat16, 2048, 16, "l2"),
+    "angular": (4096, 1_000_000, 1_000_000, 100, torch.bfloat16, torch.bfloat16, 2048, 16, "l2"),
+    "u8-10M": (4096, 10_000_000, 10_000_000, 128, torch.uint8, torch.uint8, 32768, 256, "l2"),
+    "u8-100M": (512, 100_000_000, 100_000_000, 128, torch.uint8, torch.uint8, 32768, 256, "l2"),
+    "u8-10M-bf16q": (4096, 10_000_000, 10_000_000, 128, torch.uint8, torch.bfloat16, 32768, 256,
+                     "l2"),
+    "spacev-10M": (4096, 10_000_000, 10_000_000, 100, torch.int8, torch.int8, 32768, 256, "l2"),
+    "spacev-100M": (512, 100_000_000, 100_000_000, 100, torch.int8, torch.int8, 32768, 256, "l2"),
+    "glove-25": (4096, 1_183_514, 1_183_514, 25, torch.bfloat16, torch.bfloat16, 4096, 32, "ip"),
+    "glove-50": (4096, 1_183_514, 1_183_514, 50, torch.bfloat16, torch.bfloat16, 4096, 32, "ip"),
 }
 
 
-def _k1_inputs(qc, n, d, dtype, seed=0):
-    """Rows and queries made on the card from a seed: normal bf16, or
-    uniform uint8."""
+def _k1_inputs(qc, n, d, dtype, qdtype=None, metric="l2", seed=0):
+    """Rows and queries made on the card from a seed: normal bf16 (rows and
+    queries of unit norm for "ip"), or uniform uint8 / int8 (queries of
+    `qdtype`, the rows' type by default, bf16 holding the same values)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    if dtype == torch.uint8:
-        rows = torch.randint(0, 256, (n, d), dtype=torch.uint8, device="cuda", generator=g)
-        q = torch.randint(0, 256, (qc, d), dtype=torch.uint8, device="cuda", generator=g)
-        return rows, q
-    rows = torch.randn((n, d), device="cuda", generator=g).to(torch.bfloat16)
-    q = torch.randn((qc, d), device="cuda", generator=g).to(torch.bfloat16)
-    return rows, q
+    if dtype in (torch.uint8, torch.int8):
+        lo, hi = (0, 256) if dtype == torch.uint8 else (-128, 128)
+        rows = torch.randint(lo, hi, (n, d), dtype=dtype, device="cuda", generator=g)
+        q = torch.randint(lo, hi, (qc, d), dtype=dtype, device="cuda", generator=g)
+        return rows, q if qdtype in (None, dtype) else q.to(qdtype)
+    rows = torch.randn((n, d), device="cuda", generator=g)
+    q = torch.randn((qc, d), device="cuda", generator=g)
+    if metric == "ip":
+        rows /= rows.norm(dim=1, keepdim=True)
+        q /= q.norm(dim=1, keepdim=True)
+    return rows.to(torch.bfloat16), q.to(torch.bfloat16)
 
 
-def k1_cases(base: BaseEntry, reps: int, names: list[str]) -> None:
-    """Each case: the baseline entry on what the parent's `fused_knn` gave it
-    (unpadded bf16 rows, bf16 queries, its "wgmma" where this checkout takes
-    "wgmma", else its "mma"; a baseline whose entry takes `q_type` gets this
-    checkout's operands and variant instead), this checkout's `scan_buckets` on what
-    `fused_knn` gives it now (`scan_operands`), the plain version once, and
-    the library yardsticks: a bf16 `torch.matmul` of the same product and,
-    for 8-bit rows, `torch._int_mm` (row chunks of at most 2 GiB output)."""
+def _refuses(base: BaseEntry, **args) -> bool:
+    """Whether the baseline's entry refuses this launch (cudaErrorInvalidValue):
+    a variant it does not have, or a shape outside that variant's rule."""
+    return base.fn(*(args[n] for n in base.names)) == 1
+
+
+def _launch_as(variant, q, rows, pen, nlim, t, L, out_min, out_id) -> int:
+    """This checkout's K1 launched as `variant` (its C entry's return code)."""
+    return fused_scan._lib()(
+        q.data_ptr(), _ROW_TYPES[q.dtype], rows.data_ptr(), _ROW_TYPES[rows.dtype],
+        pen.data_ptr(), q.shape[0], rows.shape[0], rows.shape[1], nlim, t, L, out_min.shape[1],
+        VARIANTS[variant], out_min.data_ptr(), out_id.data_ptr(), _stream())
+
+
+def k1_cases(base: BaseEntry, reps: int, names: list[str], also: list[str] = ()) -> None:
+    """Each case: the baseline entry on what its `fused_knn` gave it (see
+    the module's docstring), this checkout's `scan_buckets` on what
+    `fused_knn` gives it now (`scan_operands`), each `also` variant that
+    admits these operands, the plain version once, and the library
+    yardsticks: a bf16 `torch.matmul` of the same product and, for 8-bit
+    rows and queries, `torch._int_mm` (row chunks of at most 2 GiB output)."""
     for name in names:
-        qc, n, nlim, d, dtype, t, L = K1_CASES[name]
-        rows, q = _k1_inputs(qc, n, d, dtype)
+        qc, n, nlim, d, dtype, qdtype, t, L, metric = K1_CASES[name]
+        rows, q = _k1_inputs(qc, n, d, dtype, qdtype, metric)
         rows_new, q_new = scan_operands(rows, q)
         q_bf = q.to(torch.bfloat16)
-        pen = squared_norms(rows)
+        pen = (squared_norms(rows) if metric == "l2"
+               else torch.zeros(n, dtype=torch.float32, device="cuda"))
         nb = -(-n // t) * (t // L)
         variant = scan_variant(q_new, rows_new, pen, t, L)
-        if "q_type" in base.names:  # a baseline of this generation: the same operands
-            base_variant, bq, brows = variant, q_new, rows_new
-        else:
-            base_variant = "wgmma" if variant == "wgmma" and rows_new is rows else "mma"
-            bq, brows = q_bf, rows
         om = torch.empty((qc, nb), device="cuda")
         oi = torch.empty((qc, nb), dtype=torch.int32, device="cuda")
+        base_variant, bq, brows = variant, q_new, rows_new
+        if "q_type" not in base.names:  # an entry without 8-bit queries: bf16, unpadded rows
+            base_variant = "wgmma" if variant == "wgmma" and rows_new is rows else "mma"
+            bq, brows = q_bf, rows
+        base_args = lambda: dict(  # noqa: E731
+            q=bq.data_ptr(), q_type=_ROW_TYPES[bq.dtype], rows=brows.data_ptr(),
+            row_type=_ROW_TYPES[brows.dtype], pen=pen.data_ptr(), qc=qc, n=n,
+            d=brows.shape[1], nlim=nlim, t=t, L=L, nb=nb, variant=VARIANTS[base_variant],
+            out_min=om.data_ptr(), out_id=oi.data_ptr(), stream=_stream())
+        if "q_type" in base.names and _refuses(base, **base_args()):
+            # a parent without this variant: its fused_knn gave "mma" bf16 queries
+            base_variant, bq = "mma", q_new.to(torch.bfloat16)
         fns = {
-            f"base {base_variant}": lambda: base(
-                q=bq.data_ptr(), q_type=_ROW_TYPES[bq.dtype], rows=brows.data_ptr(),
-                row_type=_ROW_TYPES[brows.dtype], pen=pen.data_ptr(), qc=qc, n=n,
-                d=brows.shape[1], nlim=nlim, t=t, L=L, nb=nb, variant=VARIANTS[base_variant],
-                out_min=om.data_ptr(), out_id=oi.data_ptr(), stream=_stream()),
+            f"base {base_variant}": lambda: base(**base_args()),
             f"new {variant}": lambda: scan_buckets(q_new, rows_new, pen, nlim, t, L),
         }
+        alt_out = {}
+        for alt in also:
+            if alt == variant:
+                continue
+            ao = (torch.empty_like(om), torch.empty_like(oi))
+            if _launch_as(alt, q_new, rows_new, pen, nlim, t, L, *ao) == 0:
+                alt_out[alt] = ao
+                fns[f"new as {alt}"] = (lambda a=alt, o=ao: _build.check(
+                    _launch_as(a, q_new, rows_new, pen, nlim, t, L, *o), f"K1 as {a}"))
         times = alternate(fns, reps)
         new_min, new_id = scan_buckets(q_new, rows_new, pen, nlim, t, L)
         fin = torch.isfinite(om)
-        err = float((new_min[fin] - om[fin]).abs().max())
-        same = float((new_id == oi).float().mean())
-        exact = torch.equal(new_min, om) and torch.equal(new_id, oi)
-        print(f"  new {variant} against base: max abs diff {err:g}, ids equal "
-              f"{100 * same:.3f}%{' (bit-equal)' if exact else ''}")
-        if dtype != torch.bfloat16 and not exact:
-            raise RuntimeError(f"K1 {name}: 8-bit keys differ from the baseline's")
-        del new_min, new_id, om, oi
+        for label, (got_min, got_id) in {"new": (new_min, new_id), **alt_out}.items():
+            err = float((got_min[fin] - om[fin]).abs().max())
+            same = float((got_id == oi).float().mean())
+            exact = torch.equal(got_min, om) and torch.equal(got_id, oi)
+            print(f"  {label if label == 'new' else 'as ' + label} against base: max abs diff "
+                  f"{err:g}, ids equal {100 * same:.3f}%{' (bit-equal)' if exact else ''}")
+            if dtype != torch.bfloat16 and not exact:
+                raise RuntimeError(f"K1 {name}: 8-bit keys differ from the baseline's")
+        del new_min, new_id, om, oi, alt_out
         times["plain"] = [timed(lambda: scan_buckets_plain(q_new, rows_new, pen, nlim, t, L),
                                 reps=1, warmup=0)]
         del rows_new
         times["torch.matmul bf16"] = [_chunked_matmul_ms(q_bf, rows.to(torch.bfloat16), reps)]
-        if dtype != torch.bfloat16:
+        if dtype != torch.bfloat16 and q.dtype == dtype:
             q8, rows8 = int8_operands(q, rows)
             times["torch._int_mm"] = [_chunked_int_mm_ms(q8, rows8, reps)]
             del rows8
         bound, by = scan_bound(qc, n, d, nb, row_bytes=rows.element_size(),
                                q_bytes=q_new.element_size())
-        show(f"K1 {name}: {qc} x {n} (valid {nlim}) d={d} {str(dtype)[6:]} T={t} L={L}",
-             times, bound, by)
+        show(f"K1 {name}: {qc} x {n} (valid {nlim}) d={d} {str(dtype)[6:]} rows, "
+             f"{str(q.dtype)[6:]} queries, {metric}, T={t} L={L}", times, bound, by)
         del rows, q, q_bf, pen
         torch.cuda.empty_cache()
 
@@ -418,6 +468,9 @@ def main(argv=None) -> int:
     ap.add_argument("--cases", default="k2,k1", help="comma-separated: k2, k1, k3")
     ap.add_argument("--k1", default=",".join(K1_CASES),
                     help=f"comma-separated K1 cases: {', '.join(K1_CASES)}")
+    ap.add_argument("--also", default="",
+                    help=f"comma-separated K1 variants also timed where they admit a case's "
+                         f"operands: {', '.join(VARIANTS)}")
     ap.add_argument("--k3", default=",".join([*K3_CASES, *K3_SEEDED]),
                     help=f"comma-separated K3 cases: {', '.join([*K3_CASES, *K3_SEEDED])}")
     args = ap.parse_args(argv)
@@ -436,7 +489,8 @@ def main(argv=None) -> int:
     if "k2" in cases:
         k2_cases(base["k2"], rng, args.reps)
     if "k1" in cases:
-        k1_cases(base["k1"], args.reps, args.k1.split(","))
+        k1_cases(base["k1"], args.reps, args.k1.split(","),
+                 [v for v in args.also.split(",") if v])
     if "k3" in cases:
         print(json.dumps({"card": card(), "baseline": None if "k3" not in base else
                           str(args.baseline),

@@ -69,7 +69,9 @@ def scan_bound(qc: int, n: int, d: int, nb: int, row_bytes: int = 2, q_bytes: in
     queries, table and penalties read once, the [qc, nb] f32 + i32 summary
     written once; 2 qc n d operations, at the int8 peak where rows and
     queries are both 8-bit and at the bf16 peak otherwise (8-bit rows
-    against bf16 queries are bf16 products)."""
+    against bf16 queries are bf16 products). d is the table's own width:
+    columns a kernel pads on (a bf16 copy's multiple of 8, a box's zeros
+    past d) are work the function does not need."""
     nbytes = qc * d * q_bytes + n * d * row_bytes + n * 4 + qc * nb * 8
     rate = INT8_OP_PER_S if row_bytes == q_bytes == 1 else BF16_FLOP_PER_S
     return _bound(nbytes, 2 * qc * n * d, rate)

@@ -17,11 +17,11 @@
 // table is 256 MB. Every block re-reads its rows from L2, so the query tile
 // a block holds sets the L2 traffic: (B / queries per block) x table bytes.
 //
-// Four variants. The wrapper's scan_variant (ops/fused_scan.py) picks one
+// Six variants. The wrapper's scan_variant (ops/fused_scan.py) picks one
 // by shape and type alone; the entry refuses a launch outside the rule of
 // the variant it names.
 //
-// "wgmma" (bf16 rows and queries, d % 8 == 0, 64 <= d <= 384, L <= 256,
+// "wgmma" (bf16 rows and queries, d % 8 == 0, 8 <= d <= 384, L <= 256,
 // S % 128 == 0): one block per (row tile j, BN = 128 buckets, BM = 128
 // queries), 384 threads.
 // Warpgroup 0 is the producer: one thread loads the block's query tile once
@@ -51,7 +51,13 @@
 // Blocks are numbered query block first, so the query blocks of one row
 // tile run together and its rows are read from device memory about once.
 // A bf16 table whose d is not a multiple of 8 (angular's d = 100) is padded
-// with zero columns by fused_knn, in the bf16 copy it makes anyway.
+// with zero columns by fused_knn, in the bf16 copy it makes anyway. Below
+// d = 64 (GloVe-25 and -50: copies of 32 and 56 columns) a box still spans
+// 64 columns: TMA reads the columns past d as zeros, which add exactly 0.
+//
+// "wgmma_narrow" (bf16, d % 8 == 0, d <= 32): the same kernel on 64-byte
+// box rows (32 columns, two k16 steps) under the 64-byte swizzle, so a
+// 32-column table does half the products of "wgmma"'s 64-column boxes.
 //
 // "wgmma_int8" (uint8 or int8 rows AND queries of the same type, d % 16 ==
 // 0, d <= 256): the same kernel with wgmma m64n64k32 .s32.{u8,s8} and s32
@@ -61,6 +67,21 @@
 // 255^2 < 2^24, so float(sum) is exact and the keys fma(-2, float(sum), pen)
 // are bit-equal to the plain version's. Bound: operations at the int8 rate
 // (1,979 TOP/s), twice the bf16 one, so the fold weighs twice as much.
+//
+// "wgmma_int8_packed" (8-bit rows and queries of one type, d % 4 == 0, d %
+// 16 != 0, d <= 256; MS SPACEV's int8 d = 100): "wgmma_int8"'s consumers on
+// rows TMA cannot stride (a 100-byte row). The table is scanned as it is,
+// with no padded copy (at 100M x 100 one would take 12.8 GB beside the
+// 10 GB table). A block's 128 rows of slice l are rows row0 + l*S .. +127,
+// one contiguous run of 128 d bytes that starts on a multiple of 512 bytes.
+// The producer warpgroup copies it, and the block's queries, by 4-byte
+// cp.async straight to their swizzled places (a bulk copy into staging,
+// repacked by three warps, ran 2.6 times slower: PERF.md); each producer
+// thread arrives on the buffer's barrier once its copies land, and each
+// consumer thread fences the async proxy once a slice before its products.
+// The ring and the query tile are zeroed once at the start and the copies
+// write only columns below d, so the pad columns stay zero. Rows at or
+// past n are not copied: their keys are +inf whatever the buffer holds.
 //
 // "wgmma_wide" (bf16, d % 8 == 0, 384 < d <= 1024; gist's d = 960). A
 // 128-query tile of d = 960 is 240 KB, more than a block's 227 KB, so a
@@ -86,8 +107,9 @@
 // freed, so a slice need not fit the ring. Bound: operations (gist 1M x
 // 960, 4096 queries: 7.86 TFLOP, 7.95 ms at 989 TFLOP/s).
 //
-// "mma" (bf16 queries against 8-bit rows, and every other shape; the
-// first port): one block
+// "mma" (the first port; every shape no other variant takes: bf16 queries
+// against 8-bit rows, bf16 with d > 1024, 8-bit rows with d % 4 != 0 or
+// d > 256, L > 256, pointers off 16 bytes): one block
 // per (row tile j, 128 buckets, 64 queries), 256 threads. The query tile
 // stays in shared memory; each 64-deep chunk of the slice's rows is staged
 // synchronously (converted to bf16: exact for 8-bit values, and with
@@ -401,10 +423,35 @@ __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;" ::: "memory");
 }
 
-// wgmma operand descriptor: K-major, 128-byte swizzle, 8-row groups 1024 B apart
+// wgmma operand descriptor of a K-major tile of RB-byte rows under the
+// swizzle of that width (RB = 128: layout 1, RB = 64: layout 2), 8-row
+// groups 8 * RB bytes apart
+template <int RB = 128>
 __device__ __forceinline__ uint64_t desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)64 << 32) |
-         ((uint64_t)1 << 62);
+  static_assert(RB == 128 || RB == 64, "128- or 64-byte swizzle");
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(8 * RB / 16) << 32) | ((uint64_t)(RB == 128 ? 1 : 2) << 62);
+}
+
+// one 4-byte cp.async (generic proxy) from global src into shared dst
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst),
+               "l"(reinterpret_cast<uint64_t>(src))
+               : "memory");
+}
+
+// arrive on bar once every cp.async this thread has issued has landed; the
+// arrival counts against the barrier's expected count (.noinc)
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// shared memory written through the generic proxy (stores, cp.async) is
+// read by wgmma through the async proxy: a thread that has seen the writes
+// (by a barrier) orders them before its own later wgmma
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
@@ -437,9 +484,13 @@ __device__ __forceinline__ void pin(int32_t (&d)[32]) {
 // one K-step group of four wgmma: 64 bf16 columns (k16 each) or 128 8-bit
 // columns (k32 each), so boxes, descriptors and the fold are the same for
 // both; only the instruction, the column count and the accumulator differ.
+// Bf16Narrow takes 64-byte rows (32 bf16 columns, two k16 steps) under the
+// 64-byte swizzle. RB is the bytes of a box row.
 struct Bf16 {
   using acc_t = float;
   static constexpr int KW = 64;  // columns per 128-byte row
+  static constexpr int RB = 128;
+  static constexpr CUtensorMapSwizzle SW = CU_TENSOR_MAP_SWIZZLE_128B;
   static constexpr CUtensorMapDataType TMA = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   // d[64 x 64] (+)= A[64 x 16] B[64 x 16]^T; scale_d = 0 overwrites d
   __device__ __forceinline__ static void mma(float (&d)[32], uint64_t da, uint64_t db,
@@ -456,12 +507,20 @@ struct Bf16 {
   __device__ __forceinline__ static float value(float a) { return a; }
 };
 
+struct Bf16Narrow : Bf16 {
+  static constexpr int KW = 32;
+  static constexpr int RB = 64;
+  static constexpr CUtensorMapSwizzle SW = CU_TENSOR_MAP_SWIZZLE_64B;
+};
+
 // 8-bit rows and queries of one type; s32 sums. While d <= 256 every sum
 // is an integer below 2^24 in magnitude, so value() is exact.
 template <bool SIGNED>
 struct Int8 {
   using acc_t = int32_t;
   static constexpr int KW = 128;
+  static constexpr int RB = 128;
+  static constexpr CUtensorMapSwizzle SW = CU_TENSOR_MAP_SWIZZLE_128B;
   static constexpr CUtensorMapDataType TMA = CU_TENSOR_MAP_DATA_TYPE_UINT8;  // bytes
   // d[64 x 64] (+)= A[64 x 32] B[64 x 32]^T
   __device__ __forceinline__ static void mma(int32_t (&d)[32], uint64_t da, uint64_t db,
@@ -579,20 +638,21 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// [rows, d] row-major of `Op`'s element type, read as boxes of 128 bytes of
-// columns x box_rows rows; out-of-bounds elements read as zeros
+// [rows, d] row-major of `Op`'s element type, read as boxes of Op::RB bytes
+// of columns x box_rows rows under Op's swizzle; out-of-bounds elements
+// (columns past d included) read as zeros
 template <typename Op>
 bool make_map(CUtensorMap* map, const void* ptr, int rows, int d, int box_rows) {
   EncodeTiled enc = encoder();
   if (!enc) return false;
-  const int esize = 128 / Op::KW;
+  const int esize = Op::RB / Op::KW;
   cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)rows};
   cuuint64_t strides[1] = {(cuuint64_t)d * esize};
   cuuint32_t box[2] = {(cuuint32_t)Op::KW, (cuuint32_t)box_rows};
   cuuint32_t elem[2] = {1, 1};
   return enc(map, Op::TMA, 2, const_cast<void*>(ptr), dims, strides, box, elem,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+             CU_TENSOR_MAP_INTERLEAVE_NONE, Op::SW, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace tma
@@ -608,8 +668,11 @@ constexpr int BN = 128;      // buckets per block (S is a multiple of 128)
 constexpr int STAGES = 8;    // row-slice ring depth
 constexpr int MAX_KC = 6;    // d <= 384 bf16 columns: query tile + ring fit shared memory
 constexpr int THREADS = 384; // producer warpgroup + two consumer warpgroups
-constexpr int Q_CHUNK = BM * 128;  // bytes of one query box
-constexpr int R_STAGE = BN * 128;  // bytes of one row box
+
+// producer arrivals that fill a ring buffer or the query tile: TMA's one
+// thread, or every thread of the producer warpgroup ("wgmma_int8_packed")
+template <bool PACKED>
+constexpr uint32_t FILLERS = PACKED ? 128 : 1;
 
 // one arrival per consumer warp frees a ring buffer for the producer
 __device__ __forceinline__ void release(uint64_t* bar, int lane) {
@@ -617,21 +680,83 @@ __device__ __forceinline__ void release(uint64_t* bar, int lane) {
   if (lane == 0) mbar_arrive(bar);
 }
 
+// byte offset of 4-byte word w (< 32) of row r in a [rows x 128 B] tile
+// under the 128-byte swizzle: 16-byte chunk c of row r sits at c ^ (r % 8)
+__device__ __forceinline__ int swz(int r, int w) {
+  return r * 128 + (((w >> 2) ^ (r & 7)) << 4) + (w & 3) * 4;
+}
+
+// "wgmma_int8_packed": the block's BM queries of d bytes (d % 4 == 0) into
+// the swizzled query tile by 4-byte cp.async (the tile was zeroed, so the
+// words past d and past qc stay zero); all 128 producer threads, each
+// arriving on qbar once its copies have landed
+template <int KCS>
+__device__ __forceinline__ void pack_queries(unsigned char* qs, const uint8_t* __restrict__ q,
+                                             int q0, int qc, int d, int tid, uint64_t* qbar) {
+  const int warp = tid / 32, lane = tid % 32;
+  for (int r = warp; r < BM && q0 + r < qc; r += 4)
+#pragma unroll
+    for (int kc = 0; kc < KCS; ++kc)
+      if (128 * kc + 4 * lane < d)
+        cp_async4(smem_u32(qs + kc * BM * 128 + swz(r, lane)),
+                  q + (size_t)(q0 + r) * d + 128 * kc + 4 * lane);
+  cp_async_arrive(qbar);
+}
+
+// "wgmma_int8_packed": ring load g (slice l = g / KCS, depth chunk kc = g
+// % KCS) is words [32 kc, 32 kc + 32) of each of the slice's rows, copied
+// by 4-byte cp.async straight to their swizzled places: warp w copies rows
+// w, w + 4, ..., one row a warp instruction (lane = word), which reads 4d
+// contiguous bytes. Each producer thread arrives on the buffer's full
+// barrier once its copies have landed (FILLERS arrivals); the consumers
+// fence before their products. Rows at or past n are not copied (their
+// keys are +inf whatever the buffer holds); columns at or past d keep the
+// zeros written at kernel start.
+template <int KCS>
+__device__ __forceinline__ void pack_rows(unsigned char* ring, uint64_t* full, uint64_t* empty,
+                                          const uint8_t* __restrict__ rows, int n, int d,
+                                          int row0, int s, int L, int tid) {
+  const int warp = tid / 32, lane = tid % 32;
+  const int loads = L * KCS;
+  for (int g = 0; g < loads; ++g) {
+    const int kc = g % KCS;
+    const long long r0 = (long long)row0 + (long long)(g / KCS) * s;
+    const int nv = (int)max(0LL, min((long long)BN, n - r0));
+    mbar_wait(&empty[g % STAGES], ((g / STAGES) & 1) ^ 1);
+    if (4 * (32 * kc + lane) < d) {
+      const uint8_t* src = rows + (size_t)r0 * d + 128 * kc + 4 * lane;
+      const uint32_t dst = smem_u32(ring + (g % STAGES) * (BN * 128));
+      for (int r = warp; r < nv; r += 4) cp_async4(dst + swz(r, lane), src + (size_t)r * d);
+    }
+    cp_async_arrive(&full[g % STAGES]);
+  }
+}
+
 // KCS = ceil(d / Op::KW) depth chunks: a compile-time count, so that every
 // product group has a fixed length and ptxas can tell which accumulator a
-// wgmma.wait_group retires
-template <int KCS, typename Op>
+// wgmma.wait_group retires. PACKED ("wgmma_int8_packed"): the producer
+// warpgroup fills the query tile and the ring from q8 / rows8 (8-bit rows
+// of d % 4 == 0 bytes, which TMA cannot stride) instead of TMA from the
+// maps; everything else is the same kernel.
+template <int KCS, typename Op, bool PACKED>
 __global__ void __launch_bounds__(THREADS, 1)
 scan_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap rmap,
+            const uint8_t* __restrict__ q8, const uint8_t* __restrict__ rows8, int n, int d,
             const float* __restrict__ pen, int qc, int nlim, int t, int L, int nb,
             int nqb, float* __restrict__ out_min, int* __restrict__ out_id) {
   using acc_t = typename Op::acc_t;
   constexpr int kcs = KCS;
+  constexpr int RB = Op::RB;          // bytes of a box row
+  constexpr int Q_CHUNK = BM * RB;    // bytes of one query box
+  constexpr int R_STAGE = BN * RB;    // bytes of one row box
+  // a ring buffer holds the same depth chunk at every fill (STAGES % KCS ==
+  // 0), so PACKED's pad columns, zeroed once, stay zero
+  static_assert(!PACKED || STAGES % KCS == 0, "a buffer keeps its depth chunk");
   extern __shared__ unsigned char smem_raw[];
-  // 128-byte swizzled tiles want 1024-byte alignment
+  // swizzled tiles want 1024-byte alignment
   unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  unsigned char* ring = base;                         // [STAGES][BN rows x 128 B]
-  unsigned char* qs = base + STAGES * R_STAGE;        // [kcs][BM rows x 128 B]
+  unsigned char* ring = base;                         // [STAGES][BN rows x RB]
+  unsigned char* qs = base + STAGES * R_STAGE;        // [kcs][BM rows x RB]
   uint64_t* full = reinterpret_cast<uint64_t*>(qs + kcs * Q_CHUNK);
   uint64_t* empty = full + STAGES;
   uint64_t* qbar = empty + STAGES;
@@ -646,18 +771,24 @@ scan_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < STAGES; ++i) {
-      mbar_init(&full[i], 1);
+      mbar_init(&full[i], FILLERS<PACKED>);
       mbar_init(&empty[i], 8);  // one arrival per consumer warp
     }
-    mbar_init(qbar, 1);
+    mbar_init(qbar, FILLERS<PACKED>);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  if (PACKED)  // the copies write only columns below d (and queries below qc)
+    for (int i = threadIdx.x; i < (STAGES * R_STAGE + kcs * Q_CHUNK) / 16; i += THREADS)
+      reinterpret_cast<uint4*>(ring)[i] = make_uint4(0, 0, 0, 0);
   __syncthreads();
 
   if (threadIdx.x < 128) {
-    // producer warpgroup: one thread issues every load
+    // producer warpgroup
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    if (threadIdx.x == 0) {
+    if constexpr (PACKED) {
+      pack_queries<KCS>(qs, q8, q0, qc, d, threadIdx.x, qbar);
+      pack_rows<KCS>(ring, full, empty, rows8, n, d, row0, s, L, threadIdx.x);
+    } else if (threadIdx.x == 0) {  // one thread issues every load
       mbar_expect_tx(qbar, kcs * Q_CHUNK);
       for (int kc = 0; kc < kcs; ++kc) load(qs + kc * Q_CHUNK, &qmap, qbar, kc * Op::KW, q0);
       int stage = 0;
@@ -694,9 +825,10 @@ scan_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
 #pragma unroll
     for (int i = 0; i < 16; ++i) arg[i] = 0;
 
-    const uint32_t qa = smem_u32(qs) + cw * (64 * 128);
+    const uint32_t qa = smem_u32(qs) + cw * (64 * RB);
     const uint32_t ra = smem_u32(ring);
     mbar_wait(qbar, 0);
+    if (PACKED) fence_async_smem();  // the zeros and the producers' cp.async
 
     // slice l's depth chunk kc is ring load g = l * kcs + kc: buffer g % STAGES,
     // filled for the (g / STAGES)-th time; half h reads its rows 64h.. of it.
@@ -707,11 +839,13 @@ scan_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
       for (int kc = 0; kc < kcs; ++kc) {
         const int g = l * kcs + kc;
         mbar_wait(&full[g % STAGES], (g / STAGES) & 1);
+        if (PACKED && h == 0) fence_async_smem();  // half 1 reads what half 0 fenced
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)  // 32 bytes of columns per step
-          Op::mma(acc, desc(qa + kc * Q_CHUNK + kk * 32),
-                  desc(ra + (g % STAGES) * R_STAGE + h * (64 * 128) + kk * 32), (kc | kk) != 0);
+        for (int kk = 0; kk < RB / 32; ++kk)  // 32 bytes of columns per step
+          Op::mma(acc, desc<RB>(qa + kc * Q_CHUNK + kk * 32),
+                  desc<RB>(ra + (g % STAGES) * R_STAGE + h * (64 * RB) + kk * 32),
+                  (kc | kk) != 0);
       }
       wgmma_commit();
     };
@@ -748,45 +882,61 @@ scan_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
   }
 }
 
-// bf16: KW = 64, d % 8 == 0 (TMA strides rows by a multiple of 16 bytes),
-// 64 <= d <= 384. 8-bit: KW = 128, d % 16 == 0, d <= 256 (exact sums).
-template <typename Op>
+// The width rule of each variant (TMA strides rows by a multiple of 16
+// bytes; 8-bit sums stay exact while d <= 256). bf16 ("wgmma"): d % 8 ==
+// 0, 8 <= d <= 384, the box's columns past d read as zeros. Bf16Narrow
+// ("wgmma_narrow"): d % 8 == 0, d <= 32. 8-bit ("wgmma_int8"): d % 16 ==
+// 0, d <= 256. PACKED 8-bit ("wgmma_int8_packed"): d % 4 == 0, d % 16 !=
+// 0, d <= 256 (a slice's run of 128 rows starts on a multiple of 512
+// bytes). Every one: L <= 256, whole 128-bucket tiles, aligned pointers.
+template <typename Op, bool PACKED = false>
 bool fits(const void* q, const void* rows, const void* pen, int d, int t, int L) {
-  const bool width = Op::KW == 64 ? d % 8 == 0 && d >= 64 && d <= MAX_KC * 64
-                                  : d % 16 == 0 && d <= 256;
+  bool width;
+  if constexpr (PACKED)
+    width = d % 4 == 0 && d % 16 != 0 && d <= 256;
+  else if constexpr (Op::KW == 128)
+    width = d % 16 == 0 && d <= 256;
+  else if constexpr (Op::KW == 64)
+    width = d % 8 == 0 && d >= 8 && d <= MAX_KC * 64;
+  else
+    width = d % 8 == 0 && d <= Op::KW;
   return width && L <= 256 && t % L == 0 && (t / L) % BN == 0 && (uintptr_t)q % 16 == 0 &&
          (uintptr_t)rows % 16 == 0 && (uintptr_t)pen % 8 == 0;
 }
 
-template <int KCS, typename Op>
-cudaError_t run(const CUtensorMap& qmap, const CUtensorMap& rmap, const void* pen, int qc,
-                int nlim, int t, int L, int nb, int nqb, long long blocks, void* out_min,
-                void* out_id, cudaStream_t stream) {
-  const size_t smem = 1024 + (size_t)STAGES * R_STAGE + (size_t)KCS * Q_CHUNK +
+template <int KCS, typename Op, bool PACKED>
+cudaError_t run(const CUtensorMap& qmap, const CUtensorMap& rmap, const void* q, const void* rows,
+                int n, int d, const void* pen, int qc, int nlim, int t, int L, int nb, int nqb,
+                long long blocks, void* out_min, void* out_id, cudaStream_t stream) {
+  const size_t smem = 1024 + (size_t)STAGES * BN * Op::RB + (size_t)KCS * BM * Op::RB +
                       (2 * STAGES + 1) * sizeof(uint64_t);
-  cudaError_t e = cudaFuncSetAttribute(scan_kernel<KCS, Op>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto kern = scan_kernel<KCS, Op, PACKED>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  scan_kernel<KCS, Op><<<(unsigned)blocks, THREADS, smem, stream>>>(
-      qmap, rmap, static_cast<const float*>(pen), qc, nlim, t, L, nb, nqb,
-      static_cast<float*>(out_min), static_cast<int*>(out_id));
+  kern<<<(unsigned)blocks, THREADS, smem, stream>>>(
+      qmap, rmap, static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(rows), n, d,
+      static_cast<const float*>(pen), qc, nlim, t, L, nb, nqb, static_cast<float*>(out_min),
+      static_cast<int*>(out_id));
   return cudaGetLastError();
 }
 
-template <typename Op>
+template <typename Op, bool PACKED = false>
 cudaError_t launch(const void* q, const void* rows, const void* pen, int qc, int n, int d,
                    int nlim, int t, int L, int nb, void* out_min, void* out_id,
                    cudaStream_t stream) {
-  CUtensorMap qmap, rmap;
-  if (!make_map<Op>(&qmap, q, qc, d, BM) || !make_map<Op>(&rmap, rows, n, d, BN))
+  CUtensorMap qmap{}, rmap{};
+  if (!PACKED &&
+      (!make_map<Op>(&qmap, q, qc, d, BM) || !make_map<Op>(&rmap, rows, n, d, BN)))
     return cudaErrorInvalidValue;
   const int kcs = (d + Op::KW - 1) / Op::KW;
   const int nqb = (qc + BM - 1) / BM;
   const int n_tiles = (n + t - 1) / t;
   const long long blocks = (long long)nqb * n_tiles * ((t / L) / BN);
-#define RUN_(K) \
-  return run<K, Op>(qmap, rmap, pen, qc, nlim, t, L, nb, nqb, blocks, out_min, out_id, stream)
-  if constexpr (Op::KW == 128) {  // d <= 256: one or two chunks
+#define RUN_(K)                                                                                  \
+  return run<K, Op, PACKED>(qmap, rmap, q, rows, n, d, pen, qc, nlim, t, L, nb, nqb, blocks, \
+                            out_min, out_id, stream)
+  if constexpr (Op::KW != 64) {  // 8-bit d <= 256: one or two chunks; narrow bf16: one
     switch (kcs) {
       case 1: RUN_(1);
       case 2: RUN_(2);
@@ -1045,18 +1195,23 @@ cudaError_t launch(const void* q, const void* rows, const void* pen, int qc, int
 }  // namespace
 
 // q_type / row_type: 0 = bfloat16, 1 = uint8, 2 = int8. variant: 0 = "mma",
-// 1 = "wgmma", 2 = "wgmma_wide", 3 = "wgmma_int8", as the wrapper's
-// scan_variant chose it; a launch at a shape or type outside that
-// variant's rule returns cudaErrorInvalidValue. Returns cudaGetLastError().
+// 1 = "wgmma", 2 = "wgmma_wide", 3 = "wgmma_int8", 4 = "wgmma_int8_packed",
+// 5 = "wgmma_narrow", as the wrapper's scan_variant chose it; a launch at a
+// shape or type outside that variant's rule returns cudaErrorInvalidValue.
+// Returns cudaGetLastError().
 extern "C" int fused_scan_launch(const void* q, int q_type, const void* rows, int row_type,
                                  const void* pen, int qc, int n, int d, int nlim, int t, int L,
                                  int nb, int variant, void* out_min, void* out_id, void* stream) {
   using wgmma_scan::fits;
+  using wgmma_scan::launch;
   constexpr int bad = (int)cudaErrorInvalidValue;
   if (q_type < 0 || q_type > 2 || row_type < 0 || row_type > 2) return bad;
   if (qc == 0 || n == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool bf16 = q_type == 0 && row_type == 0;
+  const bool int8 = q_type == row_type && row_type != 0;
+  using U8 = tma::Int8<false>;
+  using S8 = tma::Int8<true>;
   switch (variant) {
     case 0:  // bf16 queries; bf16 or 8-bit rows
       if (q_type != 0) return bad;
@@ -1067,18 +1222,21 @@ extern "C" int fused_scan_launch(const void* q, int q_type, const void* rows, in
       }
     case 1:
       if (!bf16 || !fits<tma::Bf16>(q, rows, pen, d, t, L)) return bad;
-      return wgmma_scan::launch<tma::Bf16>(q, rows, pen, qc, n, d, nlim, t, L, nb, out_min, out_id, s);
+      return launch<tma::Bf16>(q, rows, pen, qc, n, d, nlim, t, L, nb, out_min, out_id, s);
     case 2:
       if (!bf16 || !wide_scan::fits(q, rows, pen, d, t, L)) return bad;
       return wide_scan::launch(q, rows, pen, qc, n, d, nlim, t, L, nb, out_min, out_id, s);
     case 3:
-      if (q_type != row_type || row_type == 0) return bad;
-      if (row_type == 1) {
-        if (!fits<tma::Int8<false>>(q, rows, pen, d, t, L)) return bad;
-        return wgmma_scan::launch<tma::Int8<false>>(q, rows, pen, qc, n, d, nlim, t, L, nb, out_min, out_id, s);
-      }
-      if (!fits<tma::Int8<true>>(q, rows, pen, d, t, L)) return bad;
-      return wgmma_scan::launch<tma::Int8<true>>(q, rows, pen, qc, n, d, nlim, t, L, nb, out_min, out_id, s);
+      if (!int8 || !fits<U8>(q, rows, pen, d, t, L)) return bad;
+      if (row_type == 1) return launch<U8>(q, rows, pen, qc, n, d, nlim, t, L, nb, out_min, out_id, s);
+      return launch<S8>(q, rows, pen, qc, n, d, nlim, t, L, nb, out_min, out_id, s);
+    case 4:
+      if (!int8 || !fits<U8, true>(q, rows, pen, d, t, L)) return bad;
+      if (row_type == 1) return launch<U8, true>(q, rows, pen, qc, n, d, nlim, t, L, nb, out_min, out_id, s);
+      return launch<S8, true>(q, rows, pen, qc, n, d, nlim, t, L, nb, out_min, out_id, s);
+    case 5:
+      if (!bf16 || !fits<tma::Bf16Narrow>(q, rows, pen, d, t, L)) return bad;
+      return launch<tma::Bf16Narrow>(q, rows, pen, qc, n, d, nlim, t, L, nb, out_min, out_id, s);
     default:
       return bad;
   }

@@ -11,14 +11,18 @@ distances (or, with `exact_rerank=False`, ranked by the kernel's own keys).
 On a CUDA tensor `scan_buckets` launches the hand-written kernel
 `csrc/fused_scan.cu` (it replaces the Pallas TPU kernel
 flatnav_tpu/ops/fused_scan.py:_scan_kernel); on a CPU tensor it runs
-`scan_buckets_plain`. The kernel has four variants, chosen by shape and
-type alone (`scan_variant`): "wgmma" (TMA-fed wgmma, bf16 with d % 8 == 0
-and 64 <= d <= 384), "wgmma_wide" (the same for 384 < d <= 1024, in
-clusters of two blocks that share each row load), "wgmma_int8" (integer
-wgmma, 8-bit rows and queries of one type, d % 16 == 0) and "mma"
-(mma.sync; every other shape). `fused_knn` pads a bf16 copy whose d is not
-a multiple of 8 with zero columns, and hands 8-bit queries of an 8-bit
-table to the kernel as they are.
+`scan_buckets_plain`. The kernel has six variants, chosen by shape and
+type alone (`scan_variant`): "wgmma_narrow" (TMA-fed wgmma on 64-byte
+rows, bf16 with d % 8 == 0 and d <= 32), "wgmma" (the same on 128-byte
+rows, bf16 with d % 8 == 0 and d <= 384; TMA reads the columns of a box
+past d as zeros), "wgmma_wide" (the same for 384 < d <= 1024, in clusters
+of two blocks that share each row load), "wgmma_int8" (integer wgmma,
+8-bit rows and queries of one type, d % 16 == 0), "wgmma_int8_packed"
+(its consumers on 8-bit rows TMA cannot stride, d % 4 == 0, copied into
+shared memory by the block's producer warps; MS SPACEV's d = 100) and
+"mma" (mma.sync; every other shape). `fused_knn` pads a bf16 copy whose d
+is not a multiple of 8 with zero columns, and hands 8-bit queries of an
+8-bit table to the kernel as they are.
 A true neighbor is lost only if another row of its L-bucket scores better,
 or if bf16 rounding pushes its bucket past the shortlist; both are measured
 against the exact oracle in the tests.
@@ -46,13 +50,14 @@ _TILE = 2048
 _L = 16
 
 #: each block streams its 128-bucket share of a [T, d] row tile from L2, once
-#: for every query block (128 queries for "wgmma" and "wgmma_int8", a cluster
-#: of 2 x 64 for "wgmma_wide", 64 for "mma"); 4 MiB per tile keeps the tiles
-#: of the blocks in flight inside the 50 MB L2. Keys and the running
+#: for every query block (128 queries for the single-block wgmma variants, a
+#: cluster of 2 x 64 for "wgmma_wide", 64 for "mma"); 4 MiB per tile keeps
+#: the tiles of the blocks in flight inside the 50 MB L2. Keys and the running
 #: min/argmin live in registers, and the kernel's shared memory holds the
-#: block's query tile and 128-byte-wide slices of 128 rows (an 8-stage ring
-#: for "wgmma" and "wgmma_int8", two 3-stage rings for "wgmma_wide", one
-#: buffer for "mma"), none of which grows with T, so no other budget bounds T.
+#: block's query tile and 128- or 64-byte-wide slices of 128 rows (an 8-stage
+#: ring for the single-block wgmma variants, two 3-stage rings for
+#: "wgmma_wide", one buffer for "mma"), none of which grows with T, so no
+#: other budget bounds T.
 _ROWS_BYTES = 4 << 20
 
 #: bound on the phase-A [qc, N/L] f32+i32 bucket summary. Past it L grows
@@ -129,12 +134,14 @@ def _pick_shapes(
 def scan_operands(dataset: torch.Tensor, queries: torch.Tensor):
     """(rows, queries) as `fused_knn` hands them to `scan_buckets`.
 
-    uint8/int8 tables at d <= 257 stay as they are; their queries too where
-    they have the table's type (else bf16, exact for 8-bit values). Other
-    tables go through one bf16 copy, and so do their queries; where d is not
-    a multiple of 8 that copy carries zero columns up to the next multiple,
-    which add exactly 0 to every product (TMA reads rows of a multiple of 16
-    bytes)."""
+    uint8/int8 tables at d <= 257 stay as they are, at any d (a width TMA
+    cannot stride takes "wgmma_int8_packed", which copies the rows itself);
+    their queries too where they have the table's type (else bf16, exact for
+    8-bit values). Other tables go through one bf16 copy, and so do their
+    queries; where d is not a multiple of 8 that copy carries zero columns
+    up to the next multiple, which add exactly 0 to every product (TMA reads
+    rows of a multiple of 16 bytes). No wider copy is made for d < 64: the
+    kernel's boxes read the columns past d as zeros."""
     n, d = dataset.shape
     if dataset.dtype in _INT8 and d <= _NATIVE_INT_MAX_D:
         q = queries if queries.dtype == dataset.dtype else queries.to(torch.bfloat16)
@@ -192,20 +199,25 @@ def _lib():
 
 
 #: kernel variant -> its number in the C interface
-VARIANTS = {"mma": 0, "wgmma": 1, "wgmma_wide": 2, "wgmma_int8": 3}
+VARIANTS = {"mma": 0, "wgmma": 1, "wgmma_wide": 2, "wgmma_int8": 3, "wgmma_int8_packed": 4,
+            "wgmma_narrow": 5}
 
 
 def scan_variant(q: torch.Tensor, rows: torch.Tensor, pen: torch.Tensor, t: int, L: int) -> str:
     """The kernel variant `scan_buckets` launches for these (contiguous)
-    arguments, by shape and type alone. Every TMA variant needs L <= 256
-    slices (packed eight bits each), S = T/L a multiple of its 128-bucket
-    tile, 16-byte-aligned rows and queries and 8-byte-aligned penalties
-    (read in pairs), and rows of a multiple of 16 bytes:
-      "wgmma"       bf16 rows and queries, d % 8 == 0, 64 <= d <= 384;
-      "wgmma_wide"  the same with 384 < d <= 1024;
-      "wgmma_int8"  uint8 or int8 rows with queries of the same type,
-                    d % 16 == 0, d <= 256;
-      "mma"         everything else, 8-bit rows with bf16 queries included.
+    arguments, by shape and type alone. Every variant but "mma" needs L <=
+    256 slices (packed eight bits each), S = T/L a multiple of its
+    128-bucket tile, 16-byte-aligned rows and queries and 8-byte-aligned
+    penalties (read in pairs):
+      "wgmma_narrow"       bf16 rows and queries, d % 8 == 0, d <= 32;
+      "wgmma"              the same with 32 < d <= 384;
+      "wgmma_wide"         the same with 384 < d <= 1024;
+      "wgmma_int8"         uint8 or int8 rows with queries of the same type,
+                           d % 16 == 0, d <= 256;
+      "wgmma_int8_packed"  the same with d % 4 == 0 and d % 16 != 0 (rows
+                           TMA cannot stride: MS SPACEV's d = 100);
+      "mma"                everything else, 8-bit rows with bf16 queries
+                           included.
     The C entry refuses a launch outside the rule of the variant it names."""
     d = rows.shape[1]
     common = (
@@ -216,12 +228,17 @@ def scan_variant(q: torch.Tensor, rows: torch.Tensor, pen: torch.Tensor, t: int,
     if not common:
         return "mma"
     if rows.dtype == q.dtype == torch.bfloat16 and d % 8 == 0:
-        if 64 <= d <= 384:
+        if d <= 32:
+            return "wgmma_narrow"
+        if d <= 384:
             return "wgmma"
-        if 384 < d <= 1024:
+        if d <= 1024:
             return "wgmma_wide"
-    if rows.dtype in _INT8 and q.dtype == rows.dtype and d % 16 == 0 and d <= 256:
-        return "wgmma_int8"
+    if rows.dtype in _INT8 and q.dtype == rows.dtype and d <= 256:
+        if d % 16 == 0:
+            return "wgmma_int8"
+        if d % 4 == 0:
+            return "wgmma_int8_packed"
     return "mma"
 
 

@@ -169,7 +169,9 @@ def test_plain_scan_is_the_strided_bucket_min(rng, metric):
 @pytest.mark.parametrize("dtype,d,L,want", [
     (torch.bfloat16, 128, 16, "wgmma"), (torch.bfloat16, 64, 16, "wgmma"),
     (torch.bfloat16, 384, 16, "wgmma"), (torch.bfloat16, 136, 16, "wgmma"),
-    (torch.bfloat16, 37, 16, "mma"), (torch.bfloat16, 56, 16, "mma"),
+    (torch.bfloat16, 37, 16, "mma"), (torch.bfloat16, 56, 16, "wgmma"),
+    (torch.bfloat16, 32, 16, "wgmma_narrow"), (torch.bfloat16, 8, 32, "wgmma_narrow"),
+    (torch.bfloat16, 40, 32, "wgmma"), (torch.bfloat16, 36, 16, "mma"),
     (torch.bfloat16, 392, 16, "wgmma_wide"), (torch.bfloat16, 132, 16, "mma"),
     (torch.bfloat16, 128, 512, "mma"), (torch.bfloat16, 128, 1, "wgmma"),
     (torch.uint8, 128, 16, "mma"), (torch.int8, 128, 16, "mma"),
@@ -180,9 +182,10 @@ def test_plain_scan_is_the_strided_bucket_min(rng, metric):
 @pytest.mark.parametrize("s_blocks", [1, 3])
 def test_scan_variant_is_chosen_by_shape(dtype, d, L, want, s_blocks):
     # the main path (bf16, d=128) and the 1M scan take the TMA/wgmma
-    # variant, gist's d=960 its clustered wide form; 8-bit rows against bf16
-    # queries, widths TMA cannot stride, d past 1024 and L past eight bits
-    # take the mma.sync one. T = 128 * s_blocks * L: S = T/L is whole
+    # variant, gist's d=960 its clustered wide form, widths up to 32 the
+    # 64-byte form and 40 to 56 "wgmma" (its boxes read zeros past d); 8-bit
+    # rows against bf16 queries, widths TMA cannot stride, d past 1024 and L
+    # past eight bits take the mma.sync one. T = 128 * s_blocks * L: S = T/L is whole
     # 128-bucket tiles
     t = 128 * s_blocks * L
     rows = torch.zeros((4 * t, d), dtype=dtype)
@@ -203,8 +206,19 @@ def test_scan_variant_needs_whole_bucket_tiles(t, L):
     (torch.uint8, torch.uint8, 128, 16, "wgmma_int8"), (torch.int8, torch.int8, 128, 16, "wgmma_int8"),
     (torch.uint8, torch.uint8, 64, 256, "wgmma_int8"), (torch.int8, torch.int8, 256, 1, "wgmma_int8"),
     (torch.uint8, torch.uint8, 16, 16, "wgmma_int8"),
-    (torch.uint8, torch.uint8, 136, 16, "mma"),   # rows of 136 bytes: TMA cannot stride them
+    # rows of 136 bytes: TMA cannot stride them, the producer warps copy them
+    (torch.uint8, torch.uint8, 136, 16, "wgmma_int8_packed"),
+    (torch.int8, torch.int8, 100, 256, "wgmma_int8_packed"),  # MS SPACEV
+    (torch.uint8, torch.uint8, 100, 16, "wgmma_int8_packed"),
+    (torch.uint8, torch.uint8, 36, 1, "wgmma_int8_packed"),
+    (torch.int8, torch.int8, 4, 16, "wgmma_int8_packed"),
+    (torch.int8, torch.int8, 252, 16, "wgmma_int8_packed"),
+    (torch.uint8, torch.uint8, 37, 16, "mma"),    # rows of d % 4 != 0 bytes
+    (torch.int8, torch.int8, 102, 16, "mma"),
+    (torch.uint8, torch.bfloat16, 100, 16, "mma"),  # bf16 queries
+    (torch.int8, torch.int8, 100, 512, "mma"),
     (torch.uint8, torch.uint8, 264, 16, "mma"),   # past d = 256 the sums may leave 2^24
+    (torch.int8, torch.int8, 260, 16, "mma"),
     (torch.uint8, torch.uint8, 128, 512, "mma"),  # L past eight bits
     (torch.uint8, torch.int8, 128, 16, "mma"),    # queries of another 8-bit type
     (torch.int8, torch.uint8, 128, 16, "mma"),
@@ -216,7 +230,7 @@ def test_scan_variant_takes_integer_wgmma_for_8bit_queries(dtype, qdtype, d, L, 
     assert scan_variant(q, rows, torch.zeros(rows.shape[0]), t, L) == want
 
 
-@pytest.mark.parametrize("d", [100, 132, 960, 64])
+@pytest.mark.parametrize("d", [100, 132, 960, 64, 25, 50])
 def test_scan_operands_pad_a_bf16_copy_to_a_multiple_of_8(rng, d):
     data = torch.from_numpy(rng.standard_normal((300, d)).astype(np.float32))
     q = torch.from_numpy(rng.standard_normal((7, d)).astype(np.float32))
@@ -239,10 +253,38 @@ def test_scan_operands_keep_8bit_tables_and_their_own_queries(rng, dtype, qdtype
     assert torch.equal(qk.to(torch.float32), q.to(torch.float32))
 
 
+@pytest.mark.parametrize("d,want", [(25, "wgmma_narrow"), (50, "wgmma"), (100, "wgmma"),
+                                    (8, "wgmma_narrow")])
+@pytest.mark.parametrize("dtype", [np.float32, np.float16])
+def test_fused_knn_operands_of_narrow_tables_take_wgmma(rng, dtype, d, want):
+    # GloVe-25 / -50 (and angular's d=100): the bf16 copy fused_knn hands K1,
+    # at the shapes it picks for 1.18M rows and 4,096 queries
+    data = torch.from_numpy(rng.standard_normal((300, d)).astype(dtype))
+    q = torch.from_numpy(rng.standard_normal((7, d)).astype(dtype))
+    rows, qb = scan_operands(data, q)
+    L, t, _, _ = _pick_shapes(1_183_514, 4096, rows.shape[1], 2, _TILE, _QB, None, _SUMMARY_BYTES)
+    assert (L, t) == (32, 4096)
+    assert scan_variant(qb, rows, torch.zeros(rows.shape[0]), t, L) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int8])
+def test_fused_knn_operands_of_spacev_take_the_packed_variant(rng, dtype):
+    # MS SPACEV: an 8-bit table at d=100 with queries of its type, at the
+    # shapes fused_knn picks for 10M rows and 4,096 queries
+    data = torch.from_numpy(rng.integers(0, 100, (300, 100))).to(dtype)
+    q = torch.from_numpy(rng.integers(0, 100, (7, 100))).to(dtype)
+    rows, qk = scan_operands(data, q)
+    assert rows is data and qk.dtype == dtype
+    L, t, _, _ = _pick_shapes(10_000_000, 4096, 100, 1, _TILE, _QB, None, _SUMMARY_BYTES)
+    assert scan_variant(qk, rows, torch.zeros(rows.shape[0]), t, L) == "wgmma_int8_packed"
+    assert scan_variant(qk.to(torch.bfloat16), rows, torch.zeros(rows.shape[0]), t, L) == "mma"
+
+
 @pytest.mark.parametrize("metric", [MetricType.L2, MetricType.IP])
-@pytest.mark.parametrize("d", [100, 132])
+@pytest.mark.parametrize("d", [100, 132, 25, 50])
 def test_padded_width_matches_jax(rng, d, metric):
-    # angular's d=100 (and 132): the bf16 copy is padded to a multiple of 8
+    # angular's d=100 (and 132), GloVe's 25 and 50: the bf16 copy is padded
+    # to a multiple of 8
     data, q = clustered(4000, d, 24)
     if metric == MetricType.IP:
         data = data / np.linalg.norm(data, axis=1, keepdims=True)
@@ -257,9 +299,11 @@ def test_padded_width_matches_jax(rng, d, metric):
 
 
 @pytest.mark.parametrize("metric", [MetricType.L2, MetricType.IP])
-@pytest.mark.parametrize("dtype,d", [(np.uint8, 128), (np.int8, 128), (np.uint8, 64), (np.int8, 256)])
+@pytest.mark.parametrize("dtype,d", [(np.uint8, 128), (np.int8, 128), (np.uint8, 64), (np.int8, 256),
+                                     (np.uint8, 100), (np.int8, 100)])
 def test_8bit_queries_of_an_8bit_table_identical_to_jax(rng, dtype, d, metric):
-    # the "wgmma_int8" shapes: queries keep the table's type
+    # the "wgmma_int8" shapes and MS SPACEV's d=100 ("wgmma_int8_packed"):
+    # queries keep the table's type
     lo, hi = (0, 256) if dtype == np.uint8 else (-128, 128)
     data = rng.integers(lo, hi, (3000, d)).astype(dtype)
     q = rng.integers(lo, hi, (8, d)).astype(dtype)

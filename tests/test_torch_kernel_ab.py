@@ -103,7 +103,33 @@ def test_this_checkouts_k1_entry_takes_the_query_type():
     entry = kernel_ab.BaseEntry(_Lib(), src, "fused_scan_launch")
     assert entry.names == ["q", "q_type", "rows", "row_type", "pen", "qc", "n", "d", "nlim",
                            "t", "L", "nb", "variant", "out_min", "out_id", "stream"]
-    assert set(kernel_ab.K1_CASES) == {"1M", "path", "gist", "angular", "u8-10M", "u8-100M"}
+    assert set(kernel_ab.K1_CASES) == {"1M", "path", "gist", "angular", "u8-10M", "u8-100M",
+                                       "u8-10M-bf16q", "spacev-10M", "spacev-100M", "glove-25",
+                                       "glove-50"}
+
+
+@pytest.mark.parametrize("name", ["u8-10M", "u8-100M", "u8-10M-bf16q", "spacev-10M", "spacev-100M",
+                                  "glove-25", "glove-50"])
+def test_k1_cases_take_the_shapes_fused_knn_picks(name):
+    # T, L and the query chunk of each case are fused_knn's for its table;
+    # the bf16 tables at the width of their padded copy
+    from flatnav_tpu_torch.ops import fused_scan as fs
+
+    qc, n, _, d, dtype, qdtype, t, L, _ = kernel_ab.K1_CASES[name]
+    width = d if dtype != torch.bfloat16 else -(-d // 8) * 8
+    isz = 2 if dtype == torch.bfloat16 else 1
+    got = fs._pick_shapes(n, qc, width, isz, fs._TILE, fs._QB, None, fs._SUMMARY_BYTES)
+    assert (got[0], got[1], got[3]) == (L, t, qc)
+
+
+def test_spacev_bound_is_at_the_tables_width():
+    # the int8 rate at d=100, not at a padded width: about 4.1 ms at 10M
+    from flatnav_tpu_torch.bench.measure import INT8_OP_PER_S, scan_bound
+
+    qc, n, nlim, d, _, _, t, L, _ = kernel_ab.K1_CASES["spacev-10M"]
+    ms, by = scan_bound(qc, n, d, -(-n // t) * (t // L), row_bytes=1, q_bytes=1)
+    assert by == "operations" and ms == pytest.approx(2 * qc * n * 100 / INT8_OP_PER_S * 1e3)
+    assert ms == pytest.approx(4.1394, abs=1e-4)
 
 
 def test_scan_bound_counts_8bit_products_at_the_int8_rate():

@@ -8,9 +8,10 @@ with a card and no JAX it runs without the suite's conftest:
 
 K2 and 8-bit K1 must be bit-equal to the plain version. bf16 K1 sums its
 products in another order than cuBLAS, so its minima agree within 1e-5 of
-the largest key magnitude and its ids on >= 99% of buckets. K1 has four
-variants chosen by shape and type ("wgmma", "wgmma_wide", "wgmma_int8" and
-"mma"); each case states which one it must take. K3 must be bit-equal on
+the largest key magnitude and its ids on >= 99% of buckets. K1 has six
+variants chosen by shape and type ("wgmma_narrow", "wgmma", "wgmma_wide",
+"wgmma_int8", "wgmma_int8_packed" and "mma"); each case states which one
+it must take. K3 must be bit-equal on
 both routes ("block": bulk copies, also of rows off a 16-byte boundary;
 "warp": a warp a row), seeded with a prior or not, and the scans must
 return what the two-launch merge they replaced returns.
@@ -167,11 +168,37 @@ def test_scan_buckets_wgmma_shapes(cuda, rng, d, t, L):
     _check_scan(q, rows, squared_norms(rows), nlim, t, L, "wgmma")
 
 
-@pytest.mark.parametrize("d", [40, 56, 1032])
+@pytest.mark.parametrize("d", [37, 44, 1032])
 def test_scan_buckets_other_bf16_widths_take_mma(cuda, rng, d):
+    # rows of a byte width TMA cannot stride, and d past 1024 (d = 40 and 56
+    # take "wgmma" now: test_scan_buckets_narrow_bf16_widths)
     n, nlim, qc, t, L = 5000, 4900, 70, 2048, 16
     rows, q = _scan_case(rng, cuda, n, d, qc, torch.bfloat16)
     _check_scan(q, rows, squared_norms(rows), nlim, t, L, "mma")
+
+
+@pytest.mark.parametrize("t,L", [(256, 1), (4096, 32), (32768, 256)])
+@pytest.mark.parametrize("d,want", [(8, "wgmma_narrow"), (16, "wgmma_narrow"),
+                                    (32, "wgmma_narrow"), (40, "wgmma"), (56, "wgmma")])
+def test_scan_buckets_narrow_bf16_widths(cuda, rng, d, want, t, L):
+    # bf16 under 64 columns: 64-byte rows up to d = 32, else "wgmma"'s
+    # 64-column boxes with the columns past d read as zeros
+    n, nlim, qc = 40_037, 39_000, 300
+    rows, q = _scan_case(rng, cuda, n, d, qc, torch.bfloat16)
+    _check_scan(q, rows, squared_norms(rows), nlim, t, L, want)
+
+
+@pytest.mark.parametrize("metric", [MetricType.L2, MetricType.IP])
+@pytest.mark.parametrize("d", [25, 50])
+def test_scan_buckets_glove_widths_through_scan_operands(cuda, rng, d, metric):
+    # GloVe-25 and -50 as fused_knn hands them over: copies of 32 and 56
+    # columns, T=4096 and L=32 as it picks them at 1.18M rows
+    n, nlim, qc = 30_011, 30_011, 200
+    rows, q = _scan_case(rng, cuda, n, d, qc, torch.bfloat16)
+    rows, q = scan_operands(rows, q)
+    assert rows.shape[1] == (32 if d == 25 else 56)
+    pen = squared_norms(rows[:, :d]) if metric == MetricType.L2 else torch.zeros(n, device=cuda)
+    _check_scan(q, rows, pen, nlim, 4096, 32, "wgmma_narrow" if d == 25 else "wgmma")
 
 
 #: (T, L) of the new variants' cases: one slice, the default, eight bits of slices
@@ -211,6 +238,32 @@ def test_scan_buckets_wgmma_int8(cuda, rng, dtype, d, t, L, metric):
     _check_scan(q, rows, pen, nlim, t, L, "wgmma_int8")  # bit-equal
 
 
+@pytest.mark.parametrize("metric", [MetricType.L2, MetricType.IP])
+@pytest.mark.parametrize("t,L", NEW_TL)
+@pytest.mark.parametrize("d", [4, 36, 100, 164, 252])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int8])
+def test_scan_buckets_wgmma_int8_packed(cuda, rng, dtype, d, t, L, metric):
+    # rows of d % 16 != 0 bytes (MS SPACEV's d = 100), one and two depth
+    # chunks; n not a multiple of T and n_valid < N
+    n, nlim, qc = 40_037, 39_000, 300
+    rows, q = _scan_case(rng, cuda, n, d, qc, dtype, qdtype=dtype)
+    pen = squared_norms(rows) if metric == MetricType.L2 else torch.zeros(n, device=cuda)
+    _check_scan(q, rows, pen, nlim, t, L, "wgmma_int8_packed")  # bit-equal
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int8])
+def test_scan_buckets_packed_width_off_16_bytes_takes_mma(cuda, rng, dtype):
+    # a table slice whose base is 4 bytes past a 16-byte boundary: no TMA or
+    # packed variant takes it, and "mma" stays bit-equal
+    n, nlim, qc, d = 5000, 4900, 70, 100
+    rows, q = _scan_case(rng, cuda, n, d, qc, dtype, qdtype=dtype)
+    flat = torch.empty(n * d + 16, dtype=dtype, device=cuda)
+    view = flat[4 : 4 + n * d].view(n, d)
+    view.copy_(rows)
+    assert view.data_ptr() % 16 == 4
+    _check_scan(q, view, squared_norms(view), nlim, 2048, 16, "mma")
+
+
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.int8])
 def test_scan_buckets_bf16_queries_of_8bit_rows_take_mma(cuda, rng, dtype):
     rows, q = _scan_case(rng, cuda, 5000, 128, 70, dtype)
@@ -227,6 +280,13 @@ def test_scan_buckets_bf16_queries_of_8bit_rows_take_mma(cuda, rng, dtype):
     ("wgmma_int8", torch.uint8, torch.bfloat16, 128, 2048, 16),
     ("wgmma_int8", torch.bfloat16, torch.bfloat16, 128, 2048, 16),
     ("wgmma_int8", torch.uint8, torch.uint8, 128, 2048 * 32, 512),
+    ("wgmma_int8_packed", torch.uint8, torch.uint8, 128, 2048, 16),
+    ("wgmma_int8_packed", torch.int8, torch.int8, 102, 2048, 16),
+    ("wgmma_int8_packed", torch.int8, torch.int8, 260, 2048, 16),
+    ("wgmma_int8_packed", torch.uint8, torch.bfloat16, 100, 2048, 16),
+    ("wgmma_int8_packed", torch.int8, torch.int8, 100, 2048 * 32, 512),
+    ("wgmma_narrow", torch.bfloat16, torch.bfloat16, 40, 2048, 16),
+    ("wgmma_narrow", torch.uint8, torch.uint8, 32, 2048, 16),
     ("mma", torch.uint8, torch.uint8, 128, 2048, 16),
 ])
 def test_scan_launch_outside_a_rule_raises(cuda, rng, monkeypatch, variant, dtype, qdtype, d, t, L):
@@ -247,26 +307,28 @@ def test_scan_launch_outside_a_rule_raises(cuda, rng, monkeypatch, variant, dtyp
     assert scan_buckets.variants == before
 
 
-@pytest.mark.parametrize("case", ["angular d=100 IP", "uint8 d=128", "int8 d=128", "bf16 d=960"])
+@pytest.mark.parametrize("case", ["angular d=100 IP", "uint8 d=128", "int8 d=128", "bf16 d=960",
+                                  "int8 d=100", "uint8 d=100 IP", "glove d=25 IP",
+                                  "glove d=50 IP"])
 def test_fused_knn_on_card_matches_cpu(cuda, rng, case):
-    # the north-star shapes through fused_knn: the card against the CPU's
-    # plain scan on the same inputs
+    # the north-star shapes and MS SPACEV's and GloVe's through fused_knn:
+    # the card against the CPU's plain scan on the same inputs
     n, nq, k = 20_000, 96, 10
     metric = MetricType.IP if "IP" in case else MetricType.L2
+    d = int(case.split("d=")[1].split()[0])
     if "8" in case.split()[0]:
         dtype = torch.uint8 if case.startswith("uint8") else torch.int8
         lo, hi = (0, 256) if dtype == torch.uint8 else (-128, 128)
-        data = torch.from_numpy(rng.integers(lo, hi, (n, 128)).astype(np.int16)).to(dtype)
-        q = torch.from_numpy(rng.integers(lo, hi, (nq, 128)).astype(np.int16)).to(dtype)
-        want = "wgmma_int8"
+        data = torch.from_numpy(rng.integers(lo, hi, (n, d)).astype(np.int16)).to(dtype)
+        q = torch.from_numpy(rng.integers(lo, hi, (nq, d)).astype(np.int16)).to(dtype)
+        want = "wgmma_int8" if d % 16 == 0 else "wgmma_int8_packed"
     else:
-        d = 100 if "100" in case else 960
         data = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32))
         q = torch.from_numpy(rng.standard_normal((nq, d)).astype(np.float32))
         if metric == MetricType.IP:
             data = data / data.norm(dim=1, keepdim=True)
             q = q / q.norm(dim=1, keepdim=True)
-        want = "wgmma" if d == 100 else "wgmma_wide"
+        want = {100: "wgmma", 960: "wgmma_wide", 25: "wgmma_narrow", 50: "wgmma"}[d]
     before = dict(scan_buckets.variants)
     gd, gi = fused_knn(data.to(cuda), q.to(cuda), k, metric)
     assert scan_buckets.variants[want] > before[want]
