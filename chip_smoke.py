@@ -10,17 +10,20 @@ Phases, in order; any failure raises and the script exits nonzero:
      torch and CUDA versions, and every kernel under
      flatnav_tpu_torch/csrc built by nvcc (in parallel) with its seconds.
   2. each kernel against its plain PyTorch version, on the card:
-     K2 gather_distances bit-equal (torch.equal) at d in {7, 37, 100, 128, 960},
-     L2/IP, f32/bf16/f16 tables, ragged B x C; K1 scan_buckets bit-equal on
+     K2 gather_distances bit-equal (torch.equal) at d in {7, 37, 100, 128, 960,
+     1536, 3072, 4096, 8192} (from 1536 on, the carry-stack path), L2/IP,
+     f32/bf16/f16 tables, ragged B x C; K1 scan_buckets bit-equal on
      uint8/int8 tables and within 1e-5 of the key magnitude on bf16 tables
      (ids equal wherever a bucket's best two keys differ by more), at
      d in {37, 64, 128, 256} with bf16 queries, 8-bit queries of 8-bit
      tables at d in {64, 100, 128, 256}, and bf16 also at d in {25, 50, 100,
-     960} as fused_knn hands them over (padded to 32, 56 and 104), L2/IP, N
+     960, 1032, 1536, 3072} as fused_knn hands them over (padded to 32, 56 and
+     104), L2/IP, N
      not a multiple of the tile and n_valid < N; each case must take the
      variant the wrapper's rule names: "wgmma_narrow" for bf16 at d <= 32,
      "wgmma" for bf16 at 32 < d <= 384 (d=37 padded to 40, 56, 104),
-     "wgmma_wide" at d=960, "wgmma_int8" for 8-bit queries of 8-bit rows at
+     "wgmma_wide" at d=960, "wgmma_deep" past d=1024, "wgmma_int8" for
+     8-bit queries of 8-bit rows at
      d % 16 == 0, "wgmma_int8_packed" for them at d=100, "mma" for the rest
      (8-bit rows with bf16 queries). K3 select_k bit-equal (keys by their
      bits, ids) on K3_CASES: k in {1, 7, 8, 10, 32, 50, 64, 1024, K_MAX}, rows
@@ -132,12 +135,24 @@ Phases, in order; any failure raises and the script exits nonzero:
      brute_force_knn on the first 256 queries is held to NEW_FLOOR; K1 alone
      at each shape is held against its plain version (bit-equal on int8) and
      timed beside its bound, a bf16 torch.matmul and (int8) torch._int_mm.
+  13. OpenAI's embedding widths on synthetic unit rows (the published sets
+     are not in the repo): the Index lifecycle at d=1536, angular, cut to
+     OPENAI_ROWS rows (full width), create -> add -> search over
+     bench.headline.EF_SWEEP up to the first ef whose recall@10 reaches 0.90
+     (printed; none: the phase fails) -> search_exact exact (1.0) and
+     rerank=32 (>= 0.98) -> save -> load_index (identical), K1 on
+     "wgmma_deep" alone and K2 (the carry-stack path) in build and search,
+     each held against its plain version at a recorded call and K2 timed at
+     a search hop; then fused_knn over 1M unit rows of d=1536 and d=3072
+     (4,096 queries, "wgmma_deep" alone, recall@10 >= 0.98 on the first 256
+     against brute_force_knn), `_northstar.k1_times` at both, and K2 timed
+     at a hop of random ids over the 1M x 3072 table.
 
 The line before the last is one JSON object with each kernel's launches,
 error against its plain version, times and bound (a kernel with several
 variants or routes has an entry for each that the run times: K1's
-"wgmma_wide", "wgmma_int8", "wgmma_int8_packed" and "wgmma_narrow", K3's
-"warp"); the last line is
+"wgmma_wide", "wgmma_deep", "wgmma_int8", "wgmma_int8_packed" and
+"wgmma_narrow", K2's "carry stack", K3's "warp"); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -396,8 +411,9 @@ def phase_k3():
     return err
 
 
-#: K2's widths in phase 2: angular's d=100 and gist's d=960 among them
-K2_WIDTHS = (7, 37, 100, 128, 960)
+#: K2's widths in phase 2: angular's d=100, gist's d=960, OpenAI's 1536 and
+#: 3072, and the carry-stack path's 4096 and 8192 among them
+K2_WIDTHS = (7, 37, 100, 128, 960, 1536, 3072, 4096, 8192)
 
 
 def phase_kernels(rng):
@@ -435,6 +451,9 @@ def phase_kernels(rng):
               for d in (64, 100, 128, 256) for dtype in (torch.uint8, torch.int8)]
     cases += [(25, torch.bfloat16, False, "wgmma_narrow"), (50, torch.bfloat16, False, "wgmma"),
               (100, torch.bfloat16, False, "wgmma"), (960, torch.bfloat16, False, "wgmma_wide")]
+    # bf16 past d = 1024: OpenAI's 1536 and 3072, and the first width past
+    # "wgmma_wide"'s
+    cases += [(d, torch.bfloat16, False, "wgmma_deep") for d in (1032, 1536, 3072)]
     for d, dtype, q8, want in cases:
         for metric in (MetricType.L2, MetricType.IP):
             n, nlim, qc = 10000, 9000, 100  # n not a multiple of t
@@ -618,7 +637,7 @@ def k2_timing(call, what):
     uniq = int(torch.unique(ids).numel())
     bound, by = gather_bound(vectors, ids, queries)
     gathered = b * c * d * vectors.element_size()
-    print(f"K2 at a main-path {what} B={b} C={c} d={d} ({uniq} distinct rows): "
+    print(f"K2 at a {what} B={b} C={c} d={d} ({uniq} distinct rows): "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, distinct-row bound {bound:.4f} ms ({by}); "
           f"gathered {gathered / 1e6:.1f} MB at {gathered / (ms * 1e-3) / 1e12:.2f} TB/s")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
@@ -1559,6 +1578,177 @@ def phase_new_shapes():
     return out
 
 
+#: phase 13: the Index at OpenAI's d = 1536 (angular: IP over unit rows),
+#: cut to OPENAI_ROWS rows (full width), OPENAI_QUERIES queries, M=32,
+#: ef_construction=100; then fused_knn alone over 1M rows of each width
+OPENAI_ROWS, OPENAI_QUERIES, OPENAI_WIDTHS = 100_000, 4096, (1536, 3072)
+#: rows and queries of phase 13's fused_knn runs
+OPENAI_SCAN_ROWS, OPENAI_SCAN_QUERIES = 1_000_000, 4096
+#: recall@10 limits of phase 13: exact, fused (rerank 32), and the graph at
+#: the first ef of bench/headline.EF_SWEEP that reaches it
+OPENAI_FLOORS = {"exact": 1.0, "fused": 0.98, "graph": 0.90}
+
+
+def _unit_clustered(n, d, nq, seed):
+    """bench.synth.clustered rows and queries scaled to unit norm, as OpenAI's
+    embeddings are (their benchmarks score them by cosine)"""
+    from flatnav_tpu_torch.bench.synth import clustered
+
+    data, queries = clustered(n, d, nq, seed=seed)
+    data /= (data ** 2).sum(1, keepdims=True) ** 0.5
+    queries /= (queries ** 2).sum(1, keepdims=True) ** 0.5
+    return data, queries
+
+
+def phase_openai():
+    """Phase 13: the slice's path at OpenAI's widths. (a) The Index lifecycle
+    at d = 1536, angular, with no CPU step in between: create -> add (K2 at
+    every wave) -> search (K2 at every hop) over bench.headline.EF_SWEEP up
+    to the first ef whose recall reaches OPENAI_FLOORS["graph"] ->
+    search_exact (exact, and rerank=32: K1 "wgmma_deep", K3) -> save /
+    load_index (same ids). Counts zeroed before and read after: K1 must take
+    "wgmma_deep" alone, K2 must launch (every launch at d = 1536 is the
+    carry-stack path). K2 is held bit-equal and timed at a recorded search
+    hop, K1 within tolerance at the recorded scan. (b) fused_knn (rerank 32)
+    alone over 1M unit rows of d = 1536 and 3072 with 4,096 queries: K1
+    "wgmma_deep" alone, recall@10 on the first 256 queries against
+    brute_force_knn held to OPENAI_FLOORS["fused"], and `_northstar.k1_times`
+    at each; K2 timed at a hop of B=1024, C=512 random ids over the 1M x
+    3072 table. -> dict of the phase's numbers"""
+    import numpy as np
+    import torch
+
+    import flatnav_tpu_torch
+    from flatnav_tpu_torch.bench._northstar import k1_times
+    from flatnav_tpu_torch.bench.headline import EF_SWEEP
+    from flatnav_tpu_torch.bench.measure import CallRecorder
+    from flatnav_tpu_torch.index import search as search_mod
+    from flatnav_tpu_torch.ops import MetricType, brute_force_knn, fused_knn
+    from flatnav_tpu_torch.ops import fused_scan as fused_mod
+    from flatnav_tpu_torch.ops.fused_scan import scan_buckets
+    from flatnav_tpu_torch.ops.gather_distance import gather_distances
+
+    n, d, nq, k, m, efc = OPENAI_ROWS, OPENAI_WIDTHS[0], OPENAI_QUERIES, 10, 32, 100
+    data, queries = _unit_clustered(n, d, nq, seed=0x0A1)
+    hop_rec = CallRecorder(gather_distances, lambda v, ids, q, mt: ids.shape[1] == 16 * m, nth=4)
+    scan_rec = CallRecorder(scan_buckets)
+    out = {}
+    t0 = time.perf_counter()
+    try:
+        search_mod.gather_distances = hop_rec
+        fused_mod.scan_buckets = scan_rec
+        gather_distances.launches = 0
+        scan_buckets.launches = 0
+        scan_buckets.variants = dict.fromkeys(scan_buckets.variants, 0)
+        _, gt = brute_force_knn(torch.from_numpy(data).cuda(), torch.from_numpy(queries).cuda(),
+                                k, MetricType.IP)
+        gt = gt.cpu().numpy()
+        index = flatnav_tpu_torch.index.create("angular", dim=d, dataset_size=n,
+                                               max_edges_per_node=m, device="cuda")
+        index.add(data, ef_construction=efc)
+        torch.cuda.synchronize()
+        out["build_s"] = time.perf_counter() - t0
+        build_k2 = gather_distances.launches
+        hop_rec.reset()  # keep a query hop, not a build hop
+        graph = None
+        for ef in EF_SWEEP:
+            dist, lab = index.search(queries, K=k, ef_search=ef)
+            check(dist.shape == (nq, k) and np.isfinite(dist).all(), f"d={d} graph output")
+            r = recall(lab, gt)
+            print(f"  d={d} graph ef={ef}: recall@10 {r:.4f}")
+            if r >= OPENAI_FLOORS["graph"]:
+                graph = {"ef": ef, "recall": r, "labels": lab, "dists": dist}
+                break
+        check(graph is not None, f"d={d}: the graph reaches recall {OPENAI_FLOORS['graph']} at "
+              f"an ef of {EF_SWEEP}")
+        for name, kw in (("exact", {}), ("fused", {"rerank": 32})):
+            dist, lab = index.search_exact(queries, K=k, **kw)
+            check(dist.shape == (nq, k) and np.isfinite(dist).all(), f"d={d} {name} output")
+            out[name] = recall(lab, gt)
+        with tempfile.TemporaryDirectory(dir=REPO) as tmp:
+            path = os.path.join(tmp, "openai_index.npz")
+            index.save(path)
+            index2 = flatnav_tpu_torch.index.load_index(path, device="cuda")
+        d2, l2 = index2.search(queries, K=k, ef_search=graph["ef"])
+        torch.cuda.synchronize()
+        launches = {"gather_distances": gather_distances.launches,
+                    "gather_distances build": build_k2,
+                    "scan_buckets": scan_buckets.launches,
+                    "scan_buckets variants": dict(scan_buckets.variants)}
+    finally:
+        search_mod.gather_distances = gather_distances
+        fused_mod.scan_buckets = scan_buckets
+    out["seconds"] = time.perf_counter() - t0
+    check(np.array_equal(graph["labels"], l2) and np.array_equal(graph["dists"], d2),
+          f"d={d}: the reloaded index searches identically")
+    variants = launches["scan_buckets variants"]
+    check(variants["wgmma_deep"] > 0 and sum(variants.values()) == variants["wgmma_deep"],
+          f"d={d}: K1 took wgmma_deep alone: {variants}")
+    check(launches["gather_distances build"] > 0
+          and launches["gather_distances"] > launches["gather_distances build"],
+          f"d={d}: K2 launched in the build and in the search")
+    for e in ("exact", "fused"):
+        check(out[e] >= OPENAI_FLOORS[e], f"d={d}: {e} recall {out[e]} >= {OPENAI_FLOORS[e]}")
+    check(hop_rec.args is not None and scan_rec.args is not None,
+          f"d={d}: a search hop and a scan call were recorded")
+    print(f"openai d={d} index ({out['seconds']:.1f} s, build {out['build_s']:.1f} s): N={n} "
+          f"M={m} ef_construction={efc}, {nq} queries; recall@10 exact {out['exact']:.4f}, fused "
+          f"{out['fused']:.4f}, graph {graph['recall']:.4f} at ef={graph['ef']}; launches "
+          f"{launches}")
+    k2_err = k2_against_plain(*hop_rec.args, f"d={d} hop")
+    k1_err = k1_against_plain(*scan_rec.args, f"d={d} scan")
+    hop = k2_timing(hop_rec.args, f"d={d} search hop")
+    del index, index2, hop_rec, scan_rec
+    torch.cuda.empty_cache()
+
+    dev = torch.device("cuda")
+    scans = {}
+    for i, width in enumerate(OPENAI_WIDTHS):
+        g = torch.Generator(device=dev).manual_seed(0x0A1 + i)
+        table = torch.randn((OPENAI_SCAN_ROWS, width), device=dev, generator=g)
+        table /= table.norm(dim=1, keepdim=True)
+        q = torch.randn((OPENAI_SCAN_QUERIES, width), device=dev, generator=g)
+        q /= q.norm(dim=1, keepdim=True)
+        torch.cuda.synchronize()
+        scan_buckets.launches = 0
+        scan_buckets.variants = dict.fromkeys(scan_buckets.variants, 0)
+        t1 = time.perf_counter()
+        fd, fi = fused_knn(table, q, k, MetricType.IP, rerank=32)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t1
+        variants = dict(scan_buckets.variants)
+        check(variants["wgmma_deep"] > 0 and sum(variants.values()) == variants["wgmma_deep"],
+              f"1M x {width}: fused_knn launched K1's wgmma_deep alone: {variants}")
+        check(tuple(fd.shape) == (OPENAI_SCAN_QUERIES, k) and bool(torch.isfinite(fd).all()),
+              f"1M x {width}: finite distances of shape ({OPENAI_SCAN_QUERIES}, {k})")
+        _, truth = brute_force_knn(table, q[:256], k, MetricType.IP)
+        rec = recall(fi[:256].cpu().numpy(), truth.cpu().numpy())
+        check(rec >= OPENAI_FLOORS["fused"], f"1M x {width}: fused recall@10 {rec}")
+        kernel = k1_times(table, q, MetricType.IP)
+        check(kernel["variant"] == "wgmma_deep", f"1M x {width}: K1 timed on wgmma_deep")
+        check(kernel["max_abs_err"] <= 1e-5 * kernel["key_max"],
+              f"1M x {width}: K1 within 1e-5 of its largest key of the plain version")
+        k1_err = max(k1_err, kernel["max_abs_err"])
+        print(f"fused_knn {OPENAI_SCAN_ROWS} x {width} unit rows, IP, {OPENAI_SCAN_QUERIES} "
+              f"queries: {sec:.3f} s (first call), "
+              f"recall@10 {rec:.4f}, K1 launches {variants}; K1 alone: {json.dumps(kernel)}")
+        scans[width] = {"launches": variants["wgmma_deep"], "recall": rec, "seconds": sec,
+                        "kernel": kernel}
+        if width == OPENAI_WIDTHS[-1]:  # a hop over this table: B=1024, C=512 random ids
+            hb = min(1024, q.shape[0])
+            ids = torch.randint(0, OPENAI_SCAN_ROWS, (hb, 512), device=dev, generator=g,
+                                dtype=torch.int32)
+            call = (table, ids, q[:hb].contiguous(), MetricType.IP)
+            k2_err = max(k2_err, k2_against_plain(*call, f"{width}-wide hop"))
+            scans["hop_widest"] = k2_timing(call, f"{OPENAI_SCAN_ROWS} x {width} hop (random ids)")
+            del ids, call
+        del table, q, fd, fi, truth
+        torch.cuda.empty_cache()
+    return {"index": out, "graph": {"ef": graph["ef"], "recall": graph["recall"]},
+            "launches": launches, "hop_1536": hop, "scans": scans, "k1_err": k1_err,
+            "k2_err": k2_err}
+
+
 def main() -> int:
     quick = "--quick" in sys.argv[1:]
     import torch
@@ -1609,8 +1799,8 @@ def main() -> int:
     kernels = [k1, k2, k3, k3w]
     if not quick:
         launches, hop, wave, build_sel, k1_main, k2_main, k3_main, path = phase_main_path()
-        k2.update(k2_timing(hop, "search hop"))
-        k2["build_wave"] = k2_timing(wave, "build wave")
+        k2.update(k2_timing(hop, "main-path search hop"))
+        k2["build_wave"] = k2_timing(wave, "main-path build wave")
         intra, lane_ids, c2 = build_sel
         k3w.update(k3_times(intra, c2, lane_ids, "row", "a main-path build selection"))
         del build_sel, intra, lane_ids
@@ -1641,6 +1831,33 @@ def main() -> int:
         mark("11 north star")
         new = phase_new_shapes()
         mark("12 spacev and glove")
+        openai = phase_openai()
+        mark("13 openai")
+        deep = openai["scans"][1536]["kernel"]
+        kernels.append({
+            "name": "scan_buckets wgmma_deep", "route": "cuda", "variant": "wgmma_deep",
+            "source": "flatnav_tpu_torch/csrc/fused_scan.cu",
+            "replaces": "flatnav_tpu/ops/fused_scan.py:159",
+            "launches": openai["launches"]["scan_buckets variants"]["wgmma_deep"],
+            "launches_by_run": {"index d=1536": openai["launches"]["scan_buckets"],
+                                **{f"fused_knn 1M x {w}": openai["scans"][w]["launches"]
+                                   for w in OPENAI_WIDTHS}},
+            "max_abs_err": openai["k1_err"],
+            **{x: deep[x] for x in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "library_ms": deep["matmul_bf16_ms"], "library": "torch.matmul bf16",
+            "timed_at": {x: deep[x] for x in ("qc", "n", "d", "rows", "queries", "L", "T")},
+            "shapes": {w: openai["scans"][w]["kernel"] for w in OPENAI_WIDTHS},
+        })
+        kernels.append({
+            "name": "gather_distances carry stack", "route": "cuda", "variant": "carry stack",
+            "source": "flatnav_tpu_torch/csrc/gather_distance.cu",
+            "replaces": "flatnav_tpu/ops/gather_distance.py:54",
+            "launches": openai["launches"]["gather_distances"],
+            "launches_build": openai["launches"]["gather_distances build"],
+            "max_abs_err": openai["k2_err"], **openai["hop_1536"],
+            "timed_at": "a search hop of the d=1536 index",
+            f"hop_{OPENAI_WIDTHS[-1]}": openai["scans"]["hop_widest"],
+        })
         for variant in ("wgmma_int8_packed", "wgmma_narrow"):
             runs = {r: v for r, v in new.items() if v["variant"] == variant}
             timed_in = next(iter(runs.values()))["kernel"]

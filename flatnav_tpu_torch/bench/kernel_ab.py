@@ -19,10 +19,14 @@ new, base, so a drift of the card's clocks shows as a difference between the
 two readings of one kernel.
 
 Cases, at the main path's shapes, the 1M scan's and the north-star shapes:
-  K2 hop       B=1024, C=512, d=128 float32 over 100,000 rows (random ids)
-  K2 wave      B=8192, C=1024, d=128 float32 (a build wave)
-  K2 bf16 hop  the hop on a bfloat16 table
-  K2 d=4096    B=1024, C=512, d=4096 float32 over 20,000 rows
+  K2 (`--k2`, `K2_CASES`): hop (B=1024, C=512, d=128 float32 over 100,000
+  rows, random ids), wave (B=8192, C=1024, d=128: a build wave), bf16-hop
+  (the hop on a bfloat16 table), hops of B=1024, C=512 over 20,000 float32
+  rows at d=1536, 3072, 4096 and 8192 (OpenAI's widths and the carry-stack
+  path), wave-1536 (B=8192, C=1024 over 100,000 rows of d=1536); each held
+  bit-equal to the plain version in chunks of queries, and both versions
+  timed through their C entries (this checkout's wrapper adds host work
+  about as long as a d=128 hop)
   K1 (`--k1`, `K1_CASES`): 1M (4096 queries x 1,000,000 rows, d=128 bf16,
   T=2048, L=16), path (1024 x 108,192 rows, 100,000 valid), gist (d=960),
   angular (d=100, padded to 104 for this checkout), u8-10M (uint8 rows and
@@ -30,8 +34,9 @@ Cases, at the main path's shapes, the 1M scan's and the north-star shapes:
   u8-10M-bf16q (u8-10M with bf16 queries: "mma"), spacev-10M and
   spacev-100M (MS SPACEV's int8 d=100, L2, as u8-10M / u8-100M) and
   glove-25 / glove-50 (1,183,514 normalised rows, IP, 4096 queries, padded
-  to 32 / 56 columns for the kernel; T=4096, L=32). T and L are those
-  `fused_knn` picks.
+  to 32 / 56 columns for the kernel; T=4096, L=32), openai-1536 and
+  openai-3072 (1,000,000 normalised rows, IP, 4096 queries: OpenAI's
+  embedding widths, "wgmma_deep"). T and L are those `fused_knn` picks.
   An entry without a query type (an older one) gets bf16 queries and unpadded
   rows, as its `fused_knn` gave it; one with `q_type` gets this
   checkout's operands and variant, so a copy of this source with a
@@ -147,6 +152,14 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+def _settle(seconds: float = 1.0) -> None:
+    """Keep the card busy for about `seconds` before the first timed case,
+    so that its clocks have ramped up (a cold first reading otherwise)."""
+    a = torch.randn((4096, 4096), device="cuda", dtype=torch.bfloat16)
+    ms = timed(lambda: a @ a, reps=3, warmup=1)
+    timed(lambda: a @ a, reps=max(1, int(seconds * 1e3 / ms)), warmup=0)
+
+
 def alternate(fns: dict, reps: int) -> dict[str, list[float]]:
     """Time each callable twice, in the order given and then reversed."""
     out = {k: [] for k in fns}
@@ -163,29 +176,63 @@ def show(label: str, times: dict[str, list[float]], bound: float, by: str) -> No
               f"{100 * bound / mean:5.1f}% of bound")
 
 
-def k2_cases(base: BaseEntry, rng, reps: int) -> None:
-    for label, b, c, n, d, dtype in (("K2 hop", 1024, 512, 100_000, 128, torch.float32),
-                                     ("K2 wave", 8192, 1024, 100_000, 128, torch.float32),
-                                     ("K2 bf16 hop", 1024, 512, 100_000, 128, torch.bfloat16),
-                                     ("K2 d=4096", 1024, 512, 20_000, 4096, torch.float32)):
+#: K2 cases: label -> (B, C, rows, d, table type)
+K2_CASES = {
+    "hop": (1024, 512, 100_000, 128, torch.float32),
+    "wave": (8192, 1024, 100_000, 128, torch.float32),
+    "bf16-hop": (1024, 512, 100_000, 128, torch.bfloat16),
+    "hop-1536": (1024, 512, 20_000, 1536, torch.float32),
+    "hop-3072": (1024, 512, 20_000, 3072, torch.float32),
+    "hop-4096": (1024, 512, 20_000, 4096, torch.float32),
+    "hop-8192": (1024, 512, 20_000, 8192, torch.float32),
+    "wave-1536": (8192, 1024, 100_000, 1536, torch.float32),
+}
+
+
+def _plain_in_chunks(v, ids, q, budget=1 << 31):
+    """`gather_distances_plain` a chunk of queries at a time, each chunk's
+    padded [B, C, p] f32 block within `budget` bytes"""
+    b, c = ids.shape
+    p = 1 << max(0, v.shape[1] - 1).bit_length()
+    step = max(1, budget // (c * p * 4))
+    return torch.cat([gather_distances_plain(v, ids[lo : lo + step], q[lo : lo + step])
+                      for lo in range(0, b, step)])
+
+
+def k2_cases(base: BaseEntry, rng, reps: int, names: list[str]) -> None:
+    new = BaseEntry(_build.load("gather_distance"),
+                    (_build.CSRC / "gather_distance.cu").read_text(), "gather_distance_launch")
+    for name in names:
+        b, c, n, d, dtype = K2_CASES[name]
+        label = f"K2 {name}"
         v = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).cuda().to(dtype)
         ids = torch.from_numpy(rng.integers(0, n, (b, c)).astype(np.int32)).cuda()
         q = torch.from_numpy(rng.standard_normal((b, d), dtype=np.float32)).cuda()
         base_out = torch.empty((b, c), device="cuda")
-        fns = {
-            "base": lambda: base(vec=v.data_ptr(), vec_type=_VEC_TYPES[dtype], ids=ids.data_ptr(),
-                                 q=q.data_ptr(), n=n, d=d, B=b, C=c, ip=0,
-                                 out=base_out.data_ptr(), stream=_stream()),
-            "new": lambda: gather_distances(v, ids, q),
-        }
+        new_out = torch.empty((b, c), device="cuda")
+        base_args = dict(vec=v.data_ptr(), vec_type=_VEC_TYPES[dtype], ids=ids.data_ptr(),
+                         q=q.data_ptr(), n=n, d=d, B=b, C=c, ip=0, out=base_out.data_ptr(),
+                         stream=_stream())
+        # both through their C entries: a hop at d=128 takes about as long
+        # as the wrapper's own host work, which would be timed with it
+        fns = {"new": lambda: new(**{**base_args, "out": new_out.data_ptr()})}
+        refused = _refuses(base, **base_args)  # a version with a width limit
+        if not refused:
+            fns = {"base": lambda: base(**base_args), **fns}
         times = alternate(fns, reps)
-        want = gather_distances_plain(v, ids, q)
-        for key, got in (("base", base_out), ("new", gather_distances(v, ids, q))):
+        want = _plain_in_chunks(v, ids, q)
+        if not torch.equal(gather_distances(v, ids, q), new_out):
+            raise RuntimeError(f"{label}: the wrapper and the entry differ")
+        checked = {"new": new_out, **({} if refused else {"base": base_out})}
+        for key, got in checked.items():
             if not torch.equal(got, want):
                 raise RuntimeError(f"{label}: {key} differs from the plain version")
+        del want, checked
+        times["plain"] = [timed(lambda: _plain_in_chunks(v, ids, q), reps=1, warmup=0)]
         bound, by = gather_bound(v, ids, q)
         show(f"{label} B={b} C={c} d={d} {dtype} ({int(torch.unique(ids).numel())} distinct "
-             f"rows; both bit-equal)", times, bound, by)
+             f"rows; {'the baseline refuses this width; new' if refused else 'both'} "
+             f"bit-equal)", times, bound, by)
         gathered = b * c * d * v.element_size()
         for key, ts in times.items():
             print(f"  {key:>14}: gathered bytes {gathered / 1e6:.1f} MB at "
@@ -208,6 +255,10 @@ K1_CASES = {
     "spacev-100M": (512, 100_000_000, 100_000_000, 100, torch.int8, torch.int8, 32768, 256, "l2"),
     "glove-25": (4096, 1_183_514, 1_183_514, 25, torch.bfloat16, torch.bfloat16, 4096, 32, "ip"),
     "glove-50": (4096, 1_183_514, 1_183_514, 50, torch.bfloat16, torch.bfloat16, 4096, 32, "ip"),
+    "openai-1536": (4096, 1_000_000, 1_000_000, 1536, torch.bfloat16, torch.bfloat16, 2048, 16,
+                    "ip"),
+    "openai-3072": (4096, 1_000_000, 1_000_000, 3072, torch.bfloat16, torch.bfloat16, 2048, 16,
+                    "ip"),
 }
 
 
@@ -273,10 +324,12 @@ def k1_cases(base: BaseEntry, reps: int, names: list[str], also: list[str] = ())
         if "q_type" in base.names and _refuses(base, **base_args()):
             # a parent without this variant: its fused_knn gave "mma" bf16 queries
             base_variant, bq = "mma", q_new.to(torch.bfloat16)
-        fns = {
-            f"base {base_variant}": lambda: base(**base_args()),
-            f"new {variant}": lambda: scan_buckets(q_new, rows_new, pen, nlim, t, L),
-        }
+        fns = {f"new {variant}": lambda: scan_buckets(q_new, rows_new, pen, nlim, t, L)}
+        base_refuses = _refuses(base, **base_args())  # e.g. "mma" past its shared memory
+        if base_refuses:
+            print(f"K1 {name}: the baseline refuses this launch ({base_variant}); new alone")
+        else:
+            fns = {f"base {base_variant}": lambda: base(**base_args()), **fns}
         alt_out = {}
         for alt in also:
             if alt == variant:
@@ -288,12 +341,15 @@ def k1_cases(base: BaseEntry, reps: int, names: list[str], also: list[str] = ())
                     _launch_as(a, q_new, rows_new, pen, nlim, t, L, *o), f"K1 as {a}"))
         times = alternate(fns, reps)
         new_min, new_id = scan_buckets(q_new, rows_new, pen, nlim, t, L)
+        if base_refuses:  # hold the new kernel to the plain version instead
+            om, oi = scan_buckets_plain(q_new, rows_new, pen, nlim, t, L)
         fin = torch.isfinite(om)
         for label, (got_min, got_id) in {"new": (new_min, new_id), **alt_out}.items():
             err = float((got_min[fin] - om[fin]).abs().max())
             same = float((got_id == oi).float().mean())
             exact = torch.equal(got_min, om) and torch.equal(got_id, oi)
-            print(f"  {label if label == 'new' else 'as ' + label} against base: max abs diff "
+            print(f"  {label if label == 'new' else 'as ' + label} against "
+                  f"{'plain' if base_refuses else 'base'}: max abs diff "
                   f"{err:g}, ids equal {100 * same:.3f}%{' (bit-equal)' if exact else ''}")
             if dtype != torch.bfloat16 and not exact:
                 raise RuntimeError(f"K1 {name}: 8-bit keys differ from the baseline's")
@@ -468,6 +524,8 @@ def main(argv=None) -> int:
     ap.add_argument("--cases", default="k2,k1", help="comma-separated: k2, k1, k3")
     ap.add_argument("--k1", default=",".join(K1_CASES),
                     help=f"comma-separated K1 cases: {', '.join(K1_CASES)}")
+    ap.add_argument("--k2", default=",".join(K2_CASES),
+                    help=f"comma-separated K2 cases: {', '.join(K2_CASES)}")
     ap.add_argument("--also", default="",
                     help=f"comma-separated K1 variants also timed where they admit a case's "
                          f"operands: {', '.join(VARIANTS)}")
@@ -485,9 +543,10 @@ def main(argv=None) -> int:
     with_base = ab + (["k3"] if "k3" in cases and args.baseline is not None else [])
     base = build_baseline(args.baseline, with_base) if with_base else {}
     print(f"{card()}; torch {torch.__version__}; baseline {args.baseline}")
+    _settle()
     rng = np.random.default_rng(0)
     if "k2" in cases:
-        k2_cases(base["k2"], rng, args.reps)
+        k2_cases(base["k2"], rng, args.reps, args.k2.split(","))
     if "k1" in cases:
         k1_cases(base["k1"], args.reps, args.k1.split(","),
                  [v for v in args.also.split(",") if v])

@@ -17,7 +17,7 @@
 // table is 256 MB. Every block re-reads its rows from L2, so the query tile
 // a block holds sets the L2 traffic: (B / queries per block) x table bytes.
 //
-// Six variants. The wrapper's scan_variant (ops/fused_scan.py) picks one
+// Seven variants. The wrapper's scan_variant (ops/fused_scan.py) picks one
 // by shape and type alone; the entry refuses a launch outside the rule of
 // the variant it names.
 //
@@ -107,9 +107,26 @@
 // freed, so a slice need not fit the ring. Bound: operations (gist 1M x
 // 960, 4096 queries: 7.86 TFLOP, 7.95 ms at 989 TFLOP/s).
 //
+// "wgmma_deep" (bf16, d % 8 == 0, d > 1024: OpenAI's 1536 and 3072). A
+// query tile of 64 x 1536 bf16 is 192 KB: beside any ring it no longer
+// fits a block's shared memory, and a smaller one would multiply the row
+// reads. So neither operand stays: a block takes 128 queries x 128
+// buckets, and one ring of 6 stages carries both, each stage one 64-column
+// depth chunk of the query tile (16 KB) and of the slice's row box (16 KB),
+// for any d. The two consumer warpgroups read every stage, 64 queries
+// each, one m64n128k16 product a 16-column step, and fold each slice into
+// their own running minima (at d >= 1032 a slice's products outweigh its
+// fold 20 to 1, so no warpgroup alternation hides it). The query tile is
+// re-read from L2 once a slice; CS = 2 blocks of a cluster (consecutive
+// query blocks of the same rows) load half of each row box each by TMA
+// multicast, so L2 serves 1.5 row-box bytes where a cluster of stationary
+// 64-query blocks serves 1 for the same work and a lone block 2. Bound:
+// operations (1M x 1536, 4096 queries: 12.6 TFLOP, 12.7 ms at 989
+// TFLOP/s).
+//
 // "mma" (the first port; every shape no other variant takes: bf16 queries
-// against 8-bit rows, bf16 with d > 1024, 8-bit rows with d % 4 != 0 or
-// d > 256, L > 256, pointers off 16 bytes): one block
+// against 8-bit rows, 8-bit rows with d % 4 != 0 or d > 256, L > 256,
+// pointers off 16 bytes): one block
 // per (row tile j, 128 buckets, 64 queries), 256 threads. The query tile
 // stays in shared memory; each 64-deep chunk of the slice's rows is staged
 // synchronously (converted to bf16: exact for 8-bit values, and with
@@ -1192,11 +1209,164 @@ cudaError_t launch(const void* q, const void* rows, const void* pen, int qc, int
 
 }  // namespace wide_scan
 
+// ---------------------------------------------------------- wgmma_deep
+
+namespace deep_scan {
+
+using namespace tma;
+
+// blocks of a cluster: consecutive query blocks of the same rows, each
+// loading 1/CS of every row box by TMA multicast. At d = 1536, 2 read
+// faster than 1, and than 2 x 2 blocks that also shared each query box
+// (PERF.md)
+constexpr int CS = 2;
+constexpr int BM = 128;            // queries per block: two consumer warpgroups x 64
+constexpr int BN = 128;            // buckets per block
+constexpr int STAGES = 6;          // ring depth: a stage is one query box and one row box
+constexpr int THREADS = 384;       // producer warpgroup + two consumer warpgroups
+constexpr int Q_STAGE = BM * 128;  // bytes of a query box: 128 queries x 64 bf16
+constexpr int R_STAGE = BN * 128;  // bytes of a row box: 128 rows x 64 bf16
+constexpr int STAGE = Q_STAGE + R_STAGE;
+
+// a consumer warp frees a ring buffer in every block of the cluster
+__device__ __forceinline__ void release(uint64_t* bar, int lane) {
+  __syncwarp();
+  if (lane < CS) mbar_arrive_cluster(bar, lane);
+}
+
+// One block per (128 queries, 128 buckets of a row tile); the CS blocks of a
+// cluster take consecutive query blocks of the same rows.
+// Both operands stream through one ring, depth chunk by depth chunk: no
+// operand is held whole, so d has no upper limit. Both consumer warpgroups
+// read every stage (warpgroup w the query rows 64w ..), each running one
+// m64n128k16 product a 16-column step into its own 64 x 128 accumulator,
+// and fold it into its own running minima after each slice; each chunk is
+// its own product group, retired one chunk later, when its stage is freed.
+__global__ void __cluster_dims__(CS, 1, 1) __launch_bounds__(THREADS, 1)
+scan_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap rmap,
+            const float* __restrict__ pen, int qc, int nlim, int t, int L, int nb, int nqb,
+            int kcs, float* __restrict__ out_min, int* __restrict__ out_id) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * STAGE);
+  uint64_t* empty = full + STAGES;
+
+  const int s = t / L;
+  const int tiles_s = s / BN;
+  const int q0 = (blockIdx.x % nqb) * BM;
+  const int rest = blockIdx.x / nqb;
+  const int j = rest / tiles_s;
+  const int b0 = (rest % tiles_s) * BN;
+  const int row0 = j * t + b0;  // global row of bucket b0 in slice 0
+  const uint32_t rank = cluster_rank();
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 8 * CS);  // every consumer warp of every block of the cluster
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  cluster_sync();  // no block arrives on or loads into another before its init
+
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int l = 0; l < L; ++l)
+        for (int kc = 0; kc < kcs; ++kc) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_expect_tx(&full[stage], STAGE);  // the query box, CS parts of the row box
+          unsigned char* dst = ring + stage * STAGE;
+          load(dst, &qmap, &full[stage], kc * 64, q0);
+          load_multicast(dst + Q_STAGE + rank * (R_STAGE / CS), &rmap, &full[stage], kc * 64,
+                         row0 + l * s + rank * (BN / CS), (uint16_t)((1u << CS) - 1));
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int ct = threadIdx.x - 128;
+    const int cw = ct / 128;  // consumer warpgroup: queries [64 cw, 64 cw + 64)
+    const int warp = (ct % 128) / 32, lane = ct % 32;
+    float acc[64], best[64], pv[32];
+    uint32_t arg[16];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      acc[i] = 0.f;
+      best[i] = INFINITY;
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) arg[i] = 0;
+
+    const uint32_t ra = smem_u32(ring);
+    int g = 0;  // ring loads consumed so far
+    for (int l = 0; l < L; ++l) {
+      load_pen(pv, pen, row0 + l * s, nlim, lane);
+      wide_scan::pin(acc);
+      for (int kc = 0; kc < kcs; ++kc, ++g) {
+        const int stage = g % STAGES;
+        mbar_wait(&full[stage], (g / STAGES) & 1);
+        wgmma_fence();
+        const uint32_t sa = ra + stage * STAGE;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wide_scan::wgmma_m64n128k16(acc, desc(sa + cw * (64 * 128) + kk * 32),
+                                      desc(sa + Q_STAGE + kk * 32), (kc | kk) != 0);
+        wgmma_commit();
+        if (kc > 0) {
+          wgmma_wait<1>();  // chunk kc - 1's products are done
+          release(&empty[(g - 1) % STAGES], lane);
+        }
+      }
+      wgmma_wait<0>();
+      release(&empty[(g - 1) % STAGES], lane);
+      wide_scan::pin(acc);
+      fold_halves<Bf16, 2>(acc, pv, best, arg, l);
+    }
+    store_tile(best, arg, q0 + 64 * cw + 16 * warp + lane / 4, qc, nb, j, s, b0, row0, lane,
+               out_min, out_id);
+  }
+  cluster_sync();  // no block leaves while another may still arrive on its barriers
+}
+
+bool fits(const void* q, const void* rows, const void* pen, int d, int t, int L) {
+  return d % 8 == 0 && d > wide_scan::MAX_KC * 64 && L <= 256 && t % L == 0 &&
+         (t / L) % BN == 0 && (uintptr_t)q % 16 == 0 && (uintptr_t)rows % 16 == 0 &&
+         (uintptr_t)pen % 8 == 0;
+}
+
+cudaError_t launch(const void* q, const void* rows, const void* pen, int qc, int n, int d,
+                   int nlim, int t, int L, int nb, void* out_min, void* out_id,
+                   cudaStream_t stream) {
+  CUtensorMap qmap, rmap;
+  if (!make_map<Bf16>(&qmap, q, qc, d, BM) || !make_map<Bf16>(&rmap, rows, n, d, BN / CS))
+    return cudaErrorInvalidValue;
+  const int kcs = (d + 63) / 64;
+  const int nqb = ((qc + BM - 1) / BM + CS - 1) / CS * CS;  // whole clusters
+  const int n_tiles = (n + t - 1) / t;
+  const long long blocks = (long long)nqb * n_tiles * ((t / L) / BN);
+  const size_t smem = 1024 + (size_t)STAGES * STAGE + 2 * STAGES * sizeof(uint64_t);
+  cudaError_t e =
+      cudaFuncSetAttribute(scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return cudaGetLastError();  // clears it for the next launch
+  scan_kernel<<<(unsigned)blocks, THREADS, smem, stream>>>(
+      qmap, rmap, static_cast<const float*>(pen), qc, nlim, t, L, nb, nqb, kcs,
+      static_cast<float*>(out_min), static_cast<int*>(out_id));
+  return cudaGetLastError();
+}
+
+}  // namespace deep_scan
+
 }  // namespace
 
 // q_type / row_type: 0 = bfloat16, 1 = uint8, 2 = int8. variant: 0 = "mma",
 // 1 = "wgmma", 2 = "wgmma_wide", 3 = "wgmma_int8", 4 = "wgmma_int8_packed",
-// 5 = "wgmma_narrow", as the wrapper's scan_variant chose it; a launch at a
+// 5 = "wgmma_narrow", 6 = "wgmma_deep", as the wrapper's scan_variant chose it; a launch at a
 // shape or type outside that variant's rule returns cudaErrorInvalidValue.
 // Returns cudaGetLastError().
 extern "C" int fused_scan_launch(const void* q, int q_type, const void* rows, int row_type,
@@ -1237,6 +1407,9 @@ extern "C" int fused_scan_launch(const void* q, int q_type, const void* rows, in
     case 5:
       if (!bf16 || !fits<tma::Bf16Narrow>(q, rows, pen, d, t, L)) return bad;
       return launch<tma::Bf16Narrow>(q, rows, pen, qc, n, d, nlim, t, L, nb, out_min, out_id, s);
+    case 6:
+      if (!bf16 || !deep_scan::fits(q, rows, pen, d, t, L)) return bad;
+      return deep_scan::launch(q, rows, pen, qc, n, d, nlim, t, L, nb, out_min, out_id, s);
     default:
       return bad;
   }

@@ -11,12 +11,14 @@ distances (or, with `exact_rerank=False`, ranked by the kernel's own keys).
 On a CUDA tensor `scan_buckets` launches the hand-written kernel
 `csrc/fused_scan.cu` (it replaces the Pallas TPU kernel
 flatnav_tpu/ops/fused_scan.py:_scan_kernel); on a CPU tensor it runs
-`scan_buckets_plain`. The kernel has six variants, chosen by shape and
+`scan_buckets_plain`. The kernel has seven variants, chosen by shape and
 type alone (`scan_variant`): "wgmma_narrow" (TMA-fed wgmma on 64-byte
 rows, bf16 with d % 8 == 0 and d <= 32), "wgmma" (the same on 128-byte
 rows, bf16 with d % 8 == 0 and d <= 384; TMA reads the columns of a box
 past d as zeros), "wgmma_wide" (the same for 384 < d <= 1024, in clusters
-of two blocks that share each row load), "wgmma_int8" (integer wgmma,
+of two blocks that share each row load), "wgmma_deep" (bf16 with d % 8 ==
+0 past d = 1024: queries and rows both stream through the ring, depth
+chunk by depth chunk), "wgmma_int8" (integer wgmma,
 8-bit rows and queries of one type, d % 16 == 0), "wgmma_int8_packed"
 (its consumers on 8-bit rows TMA cannot stride, d % 4 == 0, copied into
 shared memory by the block's producer warps; MS SPACEV's d = 100) and
@@ -51,12 +53,14 @@ _L = 16
 
 #: each block streams its 128-bucket share of a [T, d] row tile from L2, once
 #: for every query block (128 queries for the single-block wgmma variants, a
-#: cluster of 2 x 64 for "wgmma_wide", 64 for "mma"); 4 MiB per tile keeps
+#: cluster of 2 x 64 for "wgmma_wide", of 2 x 128 for "wgmma_deep", 64 for
+#: "mma"); 4 MiB per tile keeps
 #: the tiles of the blocks in flight inside the 50 MB L2. Keys and the running
 #: min/argmin live in registers, and the kernel's shared memory holds the
 #: block's query tile and 128- or 64-byte-wide slices of 128 rows (an 8-stage
 #: ring for the single-block wgmma variants, two 3-stage rings for
-#: "wgmma_wide", one buffer for "mma"), none of which grows with T, so no
+#: "wgmma_wide", a 6-stage ring of query and row boxes for "wgmma_deep", one
+#: buffer for "mma"), none of which grows with T, so no
 #: other budget bounds T.
 _ROWS_BYTES = 4 << 20
 
@@ -200,7 +204,7 @@ def _lib():
 
 #: kernel variant -> its number in the C interface
 VARIANTS = {"mma": 0, "wgmma": 1, "wgmma_wide": 2, "wgmma_int8": 3, "wgmma_int8_packed": 4,
-            "wgmma_narrow": 5}
+            "wgmma_narrow": 5, "wgmma_deep": 6}
 
 
 def scan_variant(q: torch.Tensor, rows: torch.Tensor, pen: torch.Tensor, t: int, L: int) -> str:
@@ -212,6 +216,7 @@ def scan_variant(q: torch.Tensor, rows: torch.Tensor, pen: torch.Tensor, t: int,
       "wgmma_narrow"       bf16 rows and queries, d % 8 == 0, d <= 32;
       "wgmma"              the same with 32 < d <= 384;
       "wgmma_wide"         the same with 384 < d <= 1024;
+      "wgmma_deep"         the same with d > 1024 (OpenAI's 1536 and 3072);
       "wgmma_int8"         uint8 or int8 rows with queries of the same type,
                            d % 16 == 0, d <= 256;
       "wgmma_int8_packed"  the same with d % 4 == 0 and d % 16 != 0 (rows
@@ -234,6 +239,7 @@ def scan_variant(q: torch.Tensor, rows: torch.Tensor, pen: torch.Tensor, t: int,
             return "wgmma"
         if d <= 1024:
             return "wgmma_wide"
+        return "wgmma_deep"
     if rows.dtype in _INT8 and q.dtype == rows.dtype and d <= 256:
         if d % 16 == 0:
             return "wgmma_int8"

@@ -176,16 +176,17 @@ def test_plain_scan_is_the_strided_bucket_min(rng, metric):
     (torch.bfloat16, 128, 512, "mma"), (torch.bfloat16, 128, 1, "wgmma"),
     (torch.uint8, 128, 16, "mma"), (torch.int8, 128, 16, "mma"),
     (torch.bfloat16, 960, 16, "wgmma_wide"), (torch.bfloat16, 1024, 16, "wgmma_wide"),
-    (torch.bfloat16, 1032, 16, "mma"), (torch.bfloat16, 964, 16, "mma"),
+    (torch.bfloat16, 1032, 16, "wgmma_deep"), (torch.bfloat16, 964, 16, "mma"),
     (torch.bfloat16, 104, 16, "wgmma"), (torch.bfloat16, 960, 512, "mma"),
 ])
 @pytest.mark.parametrize("s_blocks", [1, 3])
 def test_scan_variant_is_chosen_by_shape(dtype, d, L, want, s_blocks):
     # the main path (bf16, d=128) and the 1M scan take the TMA/wgmma
-    # variant, gist's d=960 its clustered wide form, widths up to 32 the
-    # 64-byte form and 40 to 56 "wgmma" (its boxes read zeros past d); 8-bit
-    # rows against bf16 queries, widths TMA cannot stride, d past 1024 and L
-    # past eight bits take the mma.sync one. T = 128 * s_blocks * L: S = T/L is whole
+    # variant, gist's d=960 its clustered wide form, d past 1024 the form
+    # that streams queries and rows, widths up to 32 the 64-byte form and
+    # 40 to 56 "wgmma" (its boxes read zeros past d); 8-bit rows against
+    # bf16 queries, widths TMA cannot stride and L past eight bits take the
+    # mma.sync one. T = 128 * s_blocks * L: S = T/L is whole
     # 128-bucket tiles
     t = 128 * s_blocks * L
     rows = torch.zeros((4 * t, d), dtype=dtype)
@@ -327,3 +328,56 @@ def test_plain_scan_with_8bit_queries_equals_bf16_queries(rng, dtype, metric):
     mb, ib = scan_buckets_plain(q.to(torch.bfloat16), rows, pen, nlim, t, L)
     assert torch.equal(m8, mb) and torch.equal(i8, ib)
     assert torch.equal(scan_buckets(q, rows, pen, nlim, t, L)[0], m8)  # the CPU wrapper
+
+
+@pytest.mark.parametrize("rdtype,qdtype,d,L,want", [
+    (torch.bfloat16, torch.bfloat16, 1024, 16, "wgmma_wide"),
+    (torch.bfloat16, torch.bfloat16, 1032, 16, "wgmma_deep"),
+    (torch.bfloat16, torch.bfloat16, 1536, 16, "wgmma_deep"),  # OpenAI ada-002, 3-small
+    (torch.bfloat16, torch.bfloat16, 3072, 16, "wgmma_deep"),  # OpenAI 3-large
+    (torch.bfloat16, torch.bfloat16, 8192, 1, "wgmma_deep"),
+    (torch.bfloat16, torch.bfloat16, 3072, 256, "wgmma_deep"),
+    (torch.bfloat16, torch.bfloat16, 1540, 16, "mma"),  # rows TMA cannot stride
+    (torch.bfloat16, torch.bfloat16, 1536, 512, "mma"),  # L past eight bits
+    (torch.uint8, torch.bfloat16, 1536, 16, "mma"),  # 8-bit rows with bf16 queries
+    (torch.uint8, torch.bfloat16, 128, 16, "mma"),
+    (torch.int8, torch.bfloat16, 100, 16, "mma"),
+])
+def test_scan_variant_takes_wgmma_deep_past_1024(rdtype, qdtype, d, L, want):
+    t = 128 * L
+    rows = torch.zeros((2 * t, d), dtype=rdtype)
+    q = torch.zeros((8, d), dtype=qdtype)
+    assert scan_variant(q, rows, torch.zeros(rows.shape[0]), t, L) == want
+
+
+@pytest.mark.parametrize("dtype,d", [(np.float32, 1536), (np.float32, 3072), (np.float16, 1536),
+                                     (np.float32, 1028), (np.uint8, 1536), (np.int8, 3072)])
+def test_fused_knn_operands_of_openai_widths_take_wgmma_deep(rng, dtype, d):
+    # OpenAI's widths through the bf16 copy fused_knn makes (8-bit tables
+    # past d = 257 are promoted to it; d = 1028 is padded to 1032), at the
+    # shapes it picks for 1M rows and 4,096 queries
+    if dtype in (np.uint8, np.int8):
+        data = torch.from_numpy(rng.integers(0, 100, (300, d)).astype(dtype))
+        q = torch.from_numpy(rng.integers(0, 100, (7, d)).astype(dtype))
+    else:
+        data = torch.from_numpy(rng.standard_normal((300, d)).astype(dtype))
+        q = torch.from_numpy(rng.standard_normal((7, d)).astype(dtype))
+    rows, qb = scan_operands(data, q)
+    assert rows.dtype == qb.dtype == torch.bfloat16 and rows.shape[1] == _round_up(d, 8)
+    L, t, _, qc = _pick_shapes(1_000_000, 4096, rows.shape[1], 2, _TILE, _QB, None, _SUMMARY_BYTES)
+    assert (L, t, qc) == (16, 2048, 4096)
+    assert scan_variant(qb, rows, torch.zeros(rows.shape[0]), t, L) == "wgmma_deep"
+
+
+@pytest.mark.parametrize("metric", [MetricType.L2, MetricType.IP])
+@pytest.mark.parametrize("d", [1032, 1536, 3072])
+def test_openai_widths_match_jax(rng, d, metric):
+    # past d = 1024 ("wgmma_deep" on the card): clustered rows, unit rows
+    # under IP as OpenAI's embeddings are; the ids must be JAX's
+    data, q = clustered(4096, d, 16, seed=d)
+    if metric == MetricType.IP:
+        data = data / np.linalg.norm(data, axis=1, keepdims=True)
+        q = q / np.linalg.norm(q, axis=1, keepdims=True)
+    (jd, ji), (td, ti) = _both(data, q, 10, metric, **SHAPES)
+    np.testing.assert_array_equal(ti, ji)
+    np.testing.assert_allclose(td, jd, rtol=1e-6, atol=1e-6)

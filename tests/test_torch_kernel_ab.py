@@ -3,6 +3,8 @@ parameters its own source declares, by name."""
 
 import ctypes
 
+import numpy as np
+
 import pytest
 import torch
 
@@ -105,11 +107,11 @@ def test_this_checkouts_k1_entry_takes_the_query_type():
                            "t", "L", "nb", "variant", "out_min", "out_id", "stream"]
     assert set(kernel_ab.K1_CASES) == {"1M", "path", "gist", "angular", "u8-10M", "u8-100M",
                                        "u8-10M-bf16q", "spacev-10M", "spacev-100M", "glove-25",
-                                       "glove-50"}
+                                       "glove-50", "openai-1536", "openai-3072"}
 
 
 @pytest.mark.parametrize("name", ["u8-10M", "u8-100M", "u8-10M-bf16q", "spacev-10M", "spacev-100M",
-                                  "glove-25", "glove-50"])
+                                  "glove-25", "glove-50", "openai-1536", "openai-3072"])
 def test_k1_cases_take_the_shapes_fused_knn_picks(name):
     # T, L and the query chunk of each case are fused_knn's for its table;
     # the bf16 tables at the width of their padded copy
@@ -265,3 +267,33 @@ def test_phase_b_bound_is_the_keys_and_the_result():
     # fused_knn's phase B at 1M x 128: the keys alone give 0.3061 ms
     ms, _ = select_bound(4096, 62_592, 32, ids="full")
     assert ms == pytest.approx(0.3066, abs=1e-4)
+
+
+def test_k2_cases_hold_the_hop_and_the_wave_at_openai_widths():
+    # the parent's d=4096 hop (20,000 rows) is still a case, beside d=1536,
+    # 3072 and 8192 hops and a build wave at d=1536
+    assert kernel_ab.K2_CASES["hop-4096"] == (1024, 512, 20_000, 4096, torch.float32)
+    for d in (1536, 3072, 8192):
+        assert kernel_ab.K2_CASES[f"hop-{d}"][:2] == (1024, 512)
+    assert kernel_ab.K2_CASES["wave-1536"][:2] + kernel_ab.K2_CASES["wave-1536"][3:4] == (
+        8192, 1024, 1536)
+
+
+@pytest.mark.parametrize("d", [7, 1536, 5000])
+def test_plain_in_chunks_equals_the_plain_version(d):
+    rng = np.random.default_rng(d)
+    v = torch.from_numpy(rng.standard_normal((50, d), dtype=np.float32))
+    ids = torch.from_numpy(rng.integers(0, 50, (9, 11)).astype(np.int32))
+    q = torch.from_numpy(rng.standard_normal((9, d), dtype=np.float32))
+    got = kernel_ab._plain_in_chunks(v, ids, q, budget=3 * 11 * 8192 * 4)
+    assert torch.equal(got, kernel_ab.gather_distances_plain(v, ids, q))
+
+
+def test_openai_bound_counts_operations():
+    # 2 * 4096 * 1M * 1536 products at 989 TFLOP/s: about 12.7 ms
+    from flatnav_tpu_torch.bench.measure import BF16_FLOP_PER_S, scan_bound
+
+    qc, n, _, d, _, _, t, L, _ = kernel_ab.K1_CASES["openai-1536"]
+    ms, by = scan_bound(qc, n, d, -(-n // t) * (t // L))
+    assert by == "operations" and ms == pytest.approx(2 * qc * n * d / BF16_FLOP_PER_S * 1e3)
+    assert ms == pytest.approx(12.7229, abs=1e-4)

@@ -8,10 +8,11 @@ with a card and no JAX it runs without the suite's conftest:
 
 K2 and 8-bit K1 must be bit-equal to the plain version. bf16 K1 sums its
 products in another order than cuBLAS, so its minima agree within 1e-5 of
-the largest key magnitude and its ids on >= 99% of buckets. K1 has six
+the largest key magnitude and its ids on >= 99% of buckets. K1 has seven
 variants chosen by shape and type ("wgmma_narrow", "wgmma", "wgmma_wide",
-"wgmma_int8", "wgmma_int8_packed" and "mma"); each case states which one
-it must take. K3 must be bit-equal on
+"wgmma_deep", "wgmma_int8", "wgmma_int8_packed" and "mma"); each case
+states which one it must take. K2 is held at every width class, past
+d = 4096 too (its carry-stack path). K3 must be bit-equal on
 both routes ("block": bulk copies, also of rows off a 16-byte boundary;
 "warp": a warp a row), seeded with a prior or not, and the scans must
 return what the two-launch merge they replaced returns.
@@ -95,7 +96,7 @@ def test_gather_distances_unaligned_16bit_table(cuda, rng, d, dtype):
     assert torch.equal(gather_distances(v, i, q), gather_distances_plain(v, i, q))
 
 
-@pytest.mark.parametrize("d", [7, 128, 960])
+@pytest.mark.parametrize("d", [7, 128, 960, 5000])
 def test_gather_distances_out_of_range_ids_are_nan(cuda, rng, d):
     n, b, c = 500, 8, 200
     v = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).to(cuda)
@@ -119,6 +120,52 @@ def test_gather_distances_build_wave_width(cuda, rng, c):
     i = torch.from_numpy(rng.integers(0, n, (b, c)).astype(np.int32)).to(cuda)
     q = torch.from_numpy(rng.standard_normal((b, d), dtype=np.float32)).to(cuda)
     assert torch.equal(gather_distances(v, i, q), gather_distances_plain(v, i, q))
+
+
+#: K2 past the register path: p = 4096 and wider, d not a power of two
+#: (zero terms past d), OpenAI's 3072 and the widest the tests hold
+K2_DEEP_DS = [2049, 3072, 4096, 4097, 5000, 8192, 16384]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("metric", [MetricType.L2, MetricType.IP])
+@pytest.mark.parametrize("d", K2_DEEP_DS)
+def test_gather_distances_deep_widths_bit_equal(cuda, rng, d, metric, dtype):
+    # ragged B x C, a few candidates past the table (NaN), every other one
+    # in range; 16-bit rows of even d take the paired loads, odd d single ones
+    n, b, c = 600, 5, 131
+    v = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).to(cuda, dtype)
+    ids = rng.integers(0, n, (b, c)).astype(np.int32)
+    ids[:, ::29] = n + 1
+    i = torch.from_numpy(ids).to(cuda)
+    q = torch.from_numpy(rng.standard_normal((b, d), dtype=np.float32)).to(cuda)
+    before = gather_distances.launches
+    got = gather_distances(v, i, q, metric)
+    assert gather_distances.launches == before + 1
+    bad = i >= n
+    assert bool(torch.isnan(got[bad]).all())
+    want = gather_distances_plain(v, i.clamp(max=n - 1), q, metric)
+    assert torch.equal(got[~bad], want[~bad])
+
+
+def test_index_at_d5000_on_card_matches_cpu(cuda):
+    # a float index wider than 4096: the build's waves and the search's hops
+    # go through K2's carry-stack path on the card and give the CPU's ids;
+    # a result that is an entry point carries the entry scan's matmul
+    # distance, summed in another order by cuBLAS than on the CPU
+    rng = np.random.default_rng(5)
+    data = rng.standard_normal((1000, 5000), dtype=np.float32)
+    q = rng.standard_normal((32, 5000), dtype=np.float32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ix = flatnav_tpu_torch.index.create("l2", 5000, 1000, 16, device=dev)
+        g0 = gather_distances.launches
+        ix.add(data, ef_construction=64)
+        out[dev] = ix.search(q, K=10, ef_search=64)
+        if dev == "cuda":
+            assert gather_distances.launches > g0
+    np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-6)
 
 
 def _scan_case(rng, cuda, n, d, qc, dtype, qdtype=torch.bfloat16):
@@ -168,10 +215,11 @@ def test_scan_buckets_wgmma_shapes(cuda, rng, d, t, L):
     _check_scan(q, rows, squared_norms(rows), nlim, t, L, "wgmma")
 
 
-@pytest.mark.parametrize("d", [37, 44, 1032])
+@pytest.mark.parametrize("d", [37, 44])
 def test_scan_buckets_other_bf16_widths_take_mma(cuda, rng, d):
-    # rows of a byte width TMA cannot stride, and d past 1024 (d = 40 and 56
-    # take "wgmma" now: test_scan_buckets_narrow_bf16_widths)
+    # rows of a byte width TMA cannot stride (d = 40 and 56 take "wgmma"
+    # now: test_scan_buckets_narrow_bf16_widths; d past 1024 "wgmma_deep":
+    # test_scan_buckets_wgmma_deep)
     n, nlim, qc, t, L = 5000, 4900, 70, 2048, 16
     rows, q = _scan_case(rng, cuda, n, d, qc, torch.bfloat16)
     _check_scan(q, rows, squared_norms(rows), nlim, t, L, "mma")
@@ -214,6 +262,20 @@ def test_scan_buckets_wgmma_wide(cuda, rng, d, t, L):
     n, nlim, qc = 40_037, 39_000, 300
     rows, q = _scan_case(rng, cuda, n, d, qc, torch.bfloat16)
     _check_scan(q, rows, squared_norms(rows), nlim, t, L, "wgmma_wide")
+
+
+@pytest.mark.parametrize("t,L", NEW_TL)
+@pytest.mark.parametrize("d", [1032, 1536, 3072, 4104])
+def test_scan_buckets_wgmma_deep(cuda, rng, d, t, L):
+    # bf16 past d = 1024: both operands stream through the ring. n not a
+    # multiple of T, n_valid < N, 300 queries (not a multiple of a block's
+    # 128, nor of a cluster's); the variant count shows "wgmma_deep" alone
+    n, nlim, qc = 20_037, 19_000, 300
+    rows, q = _scan_case(rng, cuda, n, d, qc, torch.bfloat16)
+    before = dict(scan_buckets.variants)
+    _check_scan(q, rows, squared_norms(rows), nlim, t, L, "wgmma_deep")
+    after = dict(scan_buckets.variants)
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {"wgmma_deep": 1}
 
 
 @pytest.mark.parametrize("t,L", NEW_TL)
@@ -287,6 +349,11 @@ def test_scan_buckets_bf16_queries_of_8bit_rows_take_mma(cuda, rng, dtype):
     ("wgmma_int8_packed", torch.int8, torch.int8, 100, 2048 * 32, 512),
     ("wgmma_narrow", torch.bfloat16, torch.bfloat16, 40, 2048, 16),
     ("wgmma_narrow", torch.uint8, torch.uint8, 32, 2048, 16),
+    ("wgmma_deep", torch.bfloat16, torch.bfloat16, 1024, 2048, 16),
+    ("wgmma_deep", torch.bfloat16, torch.bfloat16, 1540, 2048, 16),
+    ("wgmma_deep", torch.uint8, torch.uint8, 1536, 2048, 16),
+    ("wgmma_deep", torch.bfloat16, torch.bfloat16, 1536, 2048 * 32, 512),
+    ("wgmma_wide", torch.bfloat16, torch.bfloat16, 1536, 2048, 16),
     ("mma", torch.uint8, torch.uint8, 128, 2048, 16),
 ])
 def test_scan_launch_outside_a_rule_raises(cuda, rng, monkeypatch, variant, dtype, qdtype, d, t, L):
@@ -309,7 +376,7 @@ def test_scan_launch_outside_a_rule_raises(cuda, rng, monkeypatch, variant, dtyp
 
 @pytest.mark.parametrize("case", ["angular d=100 IP", "uint8 d=128", "int8 d=128", "bf16 d=960",
                                   "int8 d=100", "uint8 d=100 IP", "glove d=25 IP",
-                                  "glove d=50 IP"])
+                                  "glove d=50 IP", "openai d=1536 IP", "openai d=3072 IP"])
 def test_fused_knn_on_card_matches_cpu(cuda, rng, case):
     # the north-star shapes and MS SPACEV's and GloVe's through fused_knn:
     # the card against the CPU's plain scan on the same inputs
@@ -328,7 +395,8 @@ def test_fused_knn_on_card_matches_cpu(cuda, rng, case):
         if metric == MetricType.IP:
             data = data / data.norm(dim=1, keepdim=True)
             q = q / q.norm(dim=1, keepdim=True)
-        want = {100: "wgmma", 960: "wgmma_wide", 25: "wgmma_narrow", 50: "wgmma"}[d]
+        want = {100: "wgmma", 960: "wgmma_wide", 25: "wgmma_narrow", 50: "wgmma",
+                1536: "wgmma_deep", 3072: "wgmma_deep"}[d]
     before = dict(scan_buckets.variants)
     gd, gi = fused_knn(data.to(cuda), q.to(cuda), k, metric)
     assert scan_buckets.variants[want] > before[want]
