@@ -13,9 +13,11 @@ Phases, in order; any failure raises and the script exits nonzero:
      K2 gather_distances bit-equal (torch.equal) at d in {7, 37, 100, 128, 960,
      1536, 3072, 4096, 8192} (from 1536 on, the carry-stack path), L2/IP,
      f32/bf16/f16 tables, ragged B x C; K1 scan_buckets bit-equal on
-     uint8/int8 tables and within 1e-5 of the key magnitude on bf16 tables
-     (ids equal wherever a bucket's best two keys differ by more), at
-     d in {37, 64, 128, 256} with bf16 queries, 8-bit queries of 8-bit
+     uint8/int8 tables against 8-bit or integer-valued bf16 queries and
+     within 1e-5 of the key magnitude otherwise (ids equal wherever a
+     bucket's best two keys differ by more), at d in {37, 64, 128, 256} on
+     bf16 tables, uint8/int8 tables at d in {37, 64, 100, 128, 256} with
+     integer-valued and with normal bf16 queries, 8-bit queries of 8-bit
      tables at d in {64, 100, 128, 256}, and bf16 also at d in {25, 50, 100,
      960, 1032, 1536, 3072} as fused_knn hands them over (padded to 32, 56 and
      104), L2/IP, N
@@ -24,8 +26,9 @@ Phases, in order; any failure raises and the script exits nonzero:
      "wgmma" for bf16 at 32 < d <= 384 (d=37 padded to 40, 56, 104),
      "wgmma_wide" at d=960, "wgmma_deep" past d=1024, "wgmma_int8" for
      8-bit queries of 8-bit rows at
-     d % 16 == 0, "wgmma_int8_packed" for them at d=100, "mma" for the rest
-     (8-bit rows with bf16 queries). K3 select_k bit-equal (keys by their
+     d % 16 == 0, "wgmma_int8_packed" for them at d=100, "wgmma_mixed" for
+     bf16 queries of 8-bit rows at d % 4 == 0, "mma" for the rest (8-bit
+     rows at d=37). K3 select_k bit-equal (keys by their
      bits, ids) on K3_CASES: k in {1, 7, 8, 10, 32, 50, 64, 1024, K_MAX}, rows
      of 7 to 390,656 columns, B from 1 to 16,384, full / row / implicit ids
      with column windows, keys with +-0, +-inf and NaN of both signs, whole
@@ -128,13 +131,18 @@ Phases, in order; any failure raises and the script exits nonzero:
      torch._int_mm on the uint8 tables); K2 at the d=100 / d=960 hops.
   12. the reference's last three datasets at their shapes, on synthetic data
      from a seed (NEW_SHAPES): fused_knn (K=10, rerank 32, 4,096 queries)
-     over an int8 10M x 100 L2 table (MS SPACEV's 10M slice) and 1,183,514
-     unit rows of d=25 and d=50 under IP (GloVe-25, GloVe-50). Counts zeroed
-     before each call and read after it: K1 must take "wgmma_int8_packed",
-     "wgmma_narrow" and "wgmma" alone, never "mma"; recall@10 against
-     brute_force_knn on the first 256 queries is held to NEW_FLOOR; K1 alone
-     at each shape is held against its plain version (bit-equal on int8) and
-     timed beside its bound, a bf16 torch.matmul and (int8) torch._int_mm.
+     over an int8 10M x 100 L2 table (MS SPACEV's 10M slice), 1,183,514
+     unit rows of d=25 and d=50 under IP (GloVe-25, GloVe-50) and a uint8
+     10M x 128 L2 table searched with float32 queries (table rows plus
+     normal noise of FLOATQ_NOISE; a BigANN-class table with float
+     queries). Counts zeroed before each call and read after it: K1 must
+     take "wgmma_int8_packed", "wgmma_narrow", "wgmma" and "wgmma_mixed"
+     alone, never "mma"; recall@10 against brute_force_knn on the first 256
+     queries is held to NEW_FLOOR; K1 alone at each shape is held against
+     its plain version (bit-equal on int8; within 1e-5 of the largest key
+     with ids equal on 99% of buckets otherwise) and timed beside its
+     bound, a bf16 torch.matmul, (int8) torch._int_mm and ("wgmma_mixed")
+     the "mma" kernel it replaced.
   13. OpenAI's embedding widths on synthetic unit rows (the published sets
      are not in the repo): the Index lifecycle at d=1536, angular, cut to
      OPENAI_ROWS rows (full width), create -> add -> search over
@@ -151,8 +159,9 @@ Phases, in order; any failure raises and the script exits nonzero:
 The line before the last is one JSON object with each kernel's launches,
 error against its plain version, times and bound (a kernel with several
 variants or routes has an entry for each that the run times: K1's
-"wgmma_wide", "wgmma_deep", "wgmma_int8", "wgmma_int8_packed" and
-"wgmma_narrow", K2's "carry stack", K3's "warp"); the last line is
+"wgmma_wide", "wgmma_deep", "wgmma_int8", "wgmma_int8_packed",
+"wgmma_narrow" and "wgmma_mixed", K2's "carry stack", K3's "warp"); the
+last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -218,13 +227,15 @@ def _bucket_gap(q, rows, pen, nlim, t, L):
 
 
 def k1_against_plain(q, rows, pen, nlim, t, L, tag) -> float:
-    """Run K1 and its plain version on the same inputs; 8-bit tables must be
-    bit-equal, bf16 minima within 1e-5 of the largest key magnitude (the
-    sums run in another order) with ids equal wherever a bucket's best two
-    keys differ by more than twice that. Returns the max abs error."""
+    """Run K1 and its plain version on the same inputs; 8-bit tables against
+    8-bit or integer-valued bf16 queries must be bit-equal (every partial
+    sum is an integer below 2^24), other minima within 1e-5 of the largest
+    key magnitude (the sums run in another order) with ids equal wherever a
+    bucket's best two keys differ by more than twice that. Returns the max
+    abs error."""
     import torch
 
-    from flatnav_tpu_torch.ops.fused_scan import scan_buckets, scan_buckets_plain
+    from flatnav_tpu_torch.ops.fused_scan import exact_keys, scan_buckets, scan_buckets_plain
 
     kmin, kid = scan_buckets(q, rows, pen, nlim, t, L)
     pmin, pid = scan_buckets_plain(q, rows, pen, nlim, t, L)
@@ -232,7 +243,7 @@ def k1_against_plain(q, rows, pen, nlim, t, L, tag) -> float:
     fin = torch.isfinite(pmin)
     check(torch.equal(fin, torch.isfinite(kmin)), f"K1 inf mask {tag}")
     err = float((kmin[fin] - pmin[fin]).abs().max()) if bool(fin.any()) else 0.0
-    if rows.dtype != torch.bfloat16:
+    if exact_keys(q, rows):
         check(torch.equal(kmin, pmin) and torch.equal(kid, pid), f"K1 bit-equal {tag}")
         return err
     tol = 1e-5 * float(pmin[fin].abs().max())
@@ -426,35 +437,42 @@ def phase_kernels(rng):
 
     dev = torch.device("cuda")
     k2_err = 0.0
+    n, b, c = 5000, 37, 129  # ragged B x C
     for d in K2_WIDTHS:
+        # one table, id block and query block a width (numpy's normal draws
+        # of the widest tables took seconds), the table cast to each type
+        table = torch.from_numpy(rng.standard_normal((n, d), dtype="float32")).to(dev)
+        ids = torch.from_numpy(rng.integers(0, n, (b, c)).astype("int32")).to(dev)
+        q = torch.from_numpy(rng.standard_normal((b, d), dtype="float32")).to(dev)
         for metric in (MetricType.L2, MetricType.IP):
             for dtype in (torch.float32, torch.bfloat16, torch.float16):
-                n, b, c = 5000, 37, 129  # ragged B x C
-                vec = torch.from_numpy(rng.standard_normal((n, d), dtype="float32")).to(dev, dtype)
-                ids = torch.from_numpy(rng.integers(0, n, (b, c)).astype("int32")).to(dev)
-                q = torch.from_numpy(rng.standard_normal((b, d), dtype="float32")).to(dev)
                 k2_err = max(k2_err, k2_against_plain(
-                    vec, ids, q, metric, f"d={d} {metric.value} {dtype}"))
+                    table.to(dtype), ids, q, metric, f"d={d} {metric.value} {dtype}"))
     print(f"K2 gather_distances: bit-equal to the plain version on {6 * len(K2_WIDTHS)} cases")
 
     k1_err = 0.0
     t, L = 2048, 16
-    # (d, row type, 8-bit queries?, the variant the wrapper must pick);
-    # bf16 d=37 reaches the kernel padded to 40
-    cases = [(d, dtype, False, "wgmma" if dtype == torch.bfloat16 else "mma")
-             for d in (37, 64, 128, 256) for dtype in (torch.uint8, torch.int8, torch.bfloat16)]
+    # (d, row type, queries, the variant the wrapper must pick); queries of
+    # an 8-bit table are of its type ("8bit"), integer-valued bf16 ("int")
+    # or normal bf16 ("normal"); bf16 d=37 reaches the kernel padded to 40
+    bf16, u8, i8 = torch.bfloat16, torch.uint8, torch.int8
+    cases = [(d, bf16, "normal", "wgmma") for d in (37, 64, 128, 256)]
+    # bf16 queries of an 8-bit table (the TPU kernel's own form for it):
+    # "wgmma_mixed" where d % 4 == 0, by TMA or (d=100) the packed copies
+    cases += [(d, dtype, qk, "mma" if d % 4 else "wgmma_mixed")
+              for d in (37, 64, 100, 128, 256) for dtype in (u8, i8) for qk in ("int", "normal")]
     # 8-bit queries of an 8-bit table (the BigANN runners', MS SPACEV's
     # d=100), and the widths of the north star and of GloVe as fused_knn
     # hands them over: 25, 50 and angular's 100 padded to 32, 56 and 104,
     # gist's d=960
-    cases += [(d, dtype, True, "wgmma_int8" if d % 16 == 0 else "wgmma_int8_packed")
-              for d in (64, 100, 128, 256) for dtype in (torch.uint8, torch.int8)]
-    cases += [(25, torch.bfloat16, False, "wgmma_narrow"), (50, torch.bfloat16, False, "wgmma"),
-              (100, torch.bfloat16, False, "wgmma"), (960, torch.bfloat16, False, "wgmma_wide")]
+    cases += [(d, dtype, "8bit", "wgmma_int8" if d % 16 == 0 else "wgmma_int8_packed")
+              for d in (64, 100, 128, 256) for dtype in (u8, i8)]
+    cases += [(25, bf16, "normal", "wgmma_narrow"), (50, bf16, "normal", "wgmma"),
+              (100, bf16, "normal", "wgmma"), (960, bf16, "normal", "wgmma_wide")]
     # bf16 past d = 1024: OpenAI's 1536 and 3072, and the first width past
     # "wgmma_wide"'s
-    cases += [(d, torch.bfloat16, False, "wgmma_deep") for d in (1032, 1536, 3072)]
-    for d, dtype, q8, want in cases:
+    cases += [(d, bf16, "normal", "wgmma_deep") for d in (1032, 1536, 3072)]
+    for d, dtype, qk, want in cases:
         for metric in (MetricType.L2, MetricType.IP):
             n, nlim, qc = 10000, 9000, 100  # n not a multiple of t
             if dtype == torch.bfloat16:
@@ -463,8 +481,12 @@ def phase_kernels(rng):
             else:
                 lo, hi = (0, 256) if dtype == torch.uint8 else (-128, 128)
                 rows = torch.from_numpy(rng.integers(lo, hi, (n, d)).astype("int16")).to(dev, dtype)
-                q = torch.from_numpy(rng.integers(lo, hi, (qc, d)).astype("int16")).to(dev)
-                q = q.to(dtype if q8 else torch.bfloat16)
+                if qk == "normal":
+                    q = (lo + hi) / 2 + 50 * rng.standard_normal((qc, d), dtype="float32")
+                    q = torch.from_numpy(q).to(dev, torch.bfloat16)
+                else:
+                    q = torch.from_numpy(rng.integers(lo, hi, (qc, d)).astype("int16")).to(dev)
+                    q = q.to(dtype if qk == "8bit" else torch.bfloat16)
             pen = (squared_norms(rows) if metric == MetricType.L2
                    else torch.zeros(n, device=dev))
             rows, q = scan_operands(rows, q) if dtype == torch.bfloat16 else (rows, q)
@@ -472,8 +494,9 @@ def phase_kernels(rng):
             k1_err = max(k1_err, k1_against_plain(
                 q, rows, pen, nlim, t, L, f"d={d} {metric.value} {dtype} q {q.dtype}"))
             check(scan_buckets.variants[want] == before + 1, f"K1 d={d} {dtype} took {want}")
-    print(f"K1 scan_buckets: 8-bit bit-equal, bf16 max abs err {k1_err:g} on {2 * len(cases)} "
-          f"cases; launches by variant {scan_buckets.variants}")
+    print(f"K1 scan_buckets: 8-bit rows against 8-bit or integer-valued queries bit-equal, "
+          f"the rest max abs err {k1_err:g}, on {2 * len(cases)} cases; launches by variant "
+          f"{scan_buckets.variants}")
     return k2_err, k1_err
 
 
@@ -1517,7 +1540,12 @@ NEW_SHAPES = [
     ("spacev-10M", 10_000_000, 100, "int8", "l2", "wgmma_int8_packed"),
     ("glove-25", 1_183_514, 25, "float32", "ip", "wgmma_narrow"),
     ("glove-50", 1_183_514, 50, "float32", "ip", "wgmma"),
+    # a BigANN-class uint8 table searched with float32 queries (table rows
+    # plus normal noise), which K1 takes as bf16 against the 8-bit rows
+    ("bigann-10M-floatq", 10_000_000, 128, "uint8", "l2", "wgmma_mixed"),
 ]
+#: spread of the noise added to phase 12's float queries of a uint8 table
+FLOATQ_NOISE = 8.0
 NEW_QUERIES = 4096
 #: recall@10 of fused_knn (rerank 32) against brute_force_knn, first 256
 #: queries: buckets of L=256 / 32 rows lose a true neighbour only on a
@@ -1528,7 +1556,8 @@ NEW_FLOOR = 0.98
 def phase_new_shapes():
     """Phase 12 (see the module's docstring). -> {name: {"variant",
     "launches", "recall", "seconds", "kernel"}}, "kernel" being
-    `_northstar.k1_times` at that shape."""
+    `_northstar.k1_times` at that shape (beside "mma" where K1 takes
+    "wgmma_mixed")."""
     import torch
 
     from flatnav_tpu_torch.bench._northstar import k1_times
@@ -1544,6 +1573,11 @@ def phase_new_shapes():
             data = torch.randint(-128, 128, (n, d), dtype=torch.int8, device=dev, generator=g)
             q = torch.randint(-128, 128, (NEW_QUERIES, d), dtype=torch.int8, device=dev,
                               generator=g)
+        elif kind == "uint8":
+            data = torch.randint(0, 256, (n, d), dtype=torch.uint8, device=dev, generator=g)
+            src = torch.randint(0, n, (NEW_QUERIES,), device=dev, generator=g)
+            q = data[src].float() + FLOATQ_NOISE * torch.randn(
+                (NEW_QUERIES, d), device=dev, generator=g)
         else:
             data = torch.randn((n, d), device=dev, generator=g)
             data /= data.norm(dim=1, keepdim=True)
@@ -1564,11 +1598,13 @@ def phase_new_shapes():
         _, truth = brute_force_knn(data, q[:256], 10, m)
         rec = recall(fi[:256].cpu().numpy(), truth.cpu().numpy())
         check(rec >= NEW_FLOOR, f"{name}: fused recall@10 {rec} >= {NEW_FLOOR}")
-        kernel = k1_times(data, q, m)
+        kernel = k1_times(data, q, m, also=("mma",) if want == "wgmma_mixed" else ())
         check(kernel["variant"] == want, f"{name}: K1 timed on {want}")
-        # int8 rows were held bit-equal inside k1_times; bf16 ones here
+        # int8 rows and queries were held bit-equal inside k1_times; bf16
+        # queries here
         check(kernel["max_abs_err"] <= 1e-5 * kernel["key_max"],
               f"{name}: K1 within 1e-5 of its largest key of the plain version")
+        check(kernel["ids_equal"] >= 0.99, f"{name}: K1 ids equal the plain version's on 99%")
         print(f"{name} ({n} x {d} {kind}, {metric}): fused_knn {sec:.3f} s (first call), "
               f"recall@10 {rec:.4f}, K1 launches {variants}; K1 alone: {json.dumps(kernel)}")
         out[name] = {"variant": want, "launches": variants[want], "recall": rec, "seconds": sec,
@@ -1858,7 +1894,7 @@ def main() -> int:
             "timed_at": "a search hop of the d=1536 index",
             f"hop_{OPENAI_WIDTHS[-1]}": openai["scans"]["hop_widest"],
         })
-        for variant in ("wgmma_int8_packed", "wgmma_narrow"):
+        for variant in ("wgmma_int8_packed", "wgmma_narrow", "wgmma_mixed"):
             runs = {r: v for r, v in new.items() if v["variant"] == variant}
             timed_in = next(iter(runs.values()))["kernel"]
             kernels.append({
@@ -1873,6 +1909,9 @@ def main() -> int:
                 "library": "torch._int_mm" if timed_in["int_mm_ms"] else "torch.matmul bf16",
                 "matmul_bf16_ms": timed_in["matmul_bf16_ms"],
                 "timed_at": {x: timed_in[x] for x in ("qc", "n", "d", "rows", "queries", "L", "T")},
+                "ids_equal": timed_in["ids_equal"],
+                # the kernel this variant replaced at these operands
+                **{f"{v}_ms": ms for v, ms in timed_in["also_ms"].items()},
             })
         k1["launches_glove_50"] = new["glove-50"]["launches"]
         k1["glove_50"] = new["glove-50"]["kernel"]

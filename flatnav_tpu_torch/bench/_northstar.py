@@ -260,16 +260,19 @@ def encode_chunks(pq, rows, dev, chunk: int, pack: bool = False) -> np.ndarray:
 
 
 def k1_times(dataset: torch.Tensor, queries: torch.Tensor, metric: MetricType,
-             n_valid: int | None = None) -> dict | None:
+             n_valid: int | None = None, also: tuple[str, ...] = ()) -> dict | None:
     """K1 (`scan_buckets`) alone at the shapes and operands `fused_knn` gives
     it for these arguments (its first query chunk), with the variant it
     takes, beside its plain version, its bound and a bf16 `torch.matmul` of
     the same product (in row chunks of at most 2 GiB of output); for 8-bit
-    tables also `torch._int_mm` (s8 x s8 -> s32; uint8 operands shifted by
-    128, which is the same work). 8-bit tables must be bit-equal to the
-    plain version; `key_max`, the largest finite key, scales the tolerance
-    of bf16 ones. These launches are not counted on the runner's path. None
-    on the CPU."""
+    queries of 8-bit tables also `torch._int_mm` (s8 x s8 -> s32; uint8
+    operands shifted by 128, which is the same work); and, in `also_ms`,
+    the kernel launched through its C entry as each variant `also` names
+    (e.g. "mma" beside "wgmma_mixed"). 8-bit tables against 8-bit or
+    integer-valued queries must be bit-equal to the plain version;
+    `key_max`, the largest finite key, scales the tolerance of the others,
+    and `ids_equal` is the share of buckets whose ids agree. These launches
+    are not counted on the runner's path. None on the CPU."""
     if not dataset.is_cuda:
         return None
     saved = launches()
@@ -283,6 +286,7 @@ def k1_times(dataset: torch.Tensor, queries: torch.Tensor, metric: MetricType,
     del q_all
     nlim = min(n if n_valid is None else int(n_valid), n)
     native = rows.dtype in (torch.uint8, torch.int8)
+    exact = fs.exact_keys(q, rows)
     kmin, kid = fs.scan_buckets(q, rows, pen, nlim, t, L)
     pmin, pid = fs.scan_buckets_plain(q, rows, pen, nlim, t, L)
     fin = torch.isfinite(pmin)
@@ -290,10 +294,21 @@ def k1_times(dataset: torch.Tensor, queries: torch.Tensor, metric: MetricType,
         raise RuntimeError("K1 and its plain version disagree on which buckets are empty")
     err = float((kmin[fin] - pmin[fin]).abs().max()) if bool(fin.any()) else 0.0
     key_max = float(pmin[fin].abs().max()) if bool(fin.any()) else 0.0
-    if native and not (torch.equal(kmin, pmin) and torch.equal(kid, pid)):
+    ids_equal = float((kid == pid).float().mean())
+    if exact and not (torch.equal(kmin, pmin) and torch.equal(kid, pid)):
         raise RuntimeError("K1 is not bit-equal to its plain version on 8-bit rows")
     del kmin, kid, pmin, pid
     ms = timed(lambda: fs.scan_buckets(q, rows, pen, nlim, t, L), reps=3, warmup=1)
+    nb = -(-n // t) * (t // L)
+    also_ms = {}
+    for variant in also:
+        q_v = q.to(torch.bfloat16) if variant in fs._BF16_QUERIES else q
+        om = torch.empty((qc, nb), dtype=torch.float32, device=rows.device)
+        oi = torch.empty((qc, nb), dtype=torch.int32, device=rows.device)
+        also_ms[variant] = timed(lambda: _build.check(
+            fs.launch_as(variant, q_v, rows, pen, nlim, t, L, om, oi), f"K1 as {variant}"),
+            reps=3, warmup=1)
+        del om, oi
     plain_ms = timed(lambda: fs.scan_buckets_plain(q, rows, pen, nlim, t, L), reps=1, warmup=0)
     q_bf = q.to(torch.bfloat16)
     rows_bf = rows.to(torch.bfloat16)
@@ -316,7 +331,6 @@ def k1_times(dataset: torch.Tensor, queries: torch.Tensor, metric: MetricType,
 
         int_mm_ms = timed(int_mm, reps=3, warmup=1)
         del rows8
-    nb = -(-n // t) * (t // L)
     bound, by = scan_bound(qc, n, d, nb, row_bytes=rows.element_size(),
                            q_bytes=q.element_size())
     restore_launches(saved)
@@ -324,7 +338,8 @@ def k1_times(dataset: torch.Tensor, queries: torch.Tensor, metric: MetricType,
             "rows": str(rows.dtype).removeprefix("torch."),
             "queries": str(q.dtype).removeprefix("torch."), "L": L, "T": t,
             "ms": ms, "plain_ms": plain_ms, "matmul_bf16_ms": matmul_ms, "int_mm_ms": int_mm_ms,
-            "bound_ms": bound, "bound_by": by, "max_abs_err": err, "key_max": key_max}
+            "also_ms": also_ms, "bound_ms": bound, "bound_by": by, "max_abs_err": err,
+            "key_max": key_max, "ids_equal": ids_equal}
 
 
 def int8_operands(q: torch.Tensor, rows: torch.Tensor):

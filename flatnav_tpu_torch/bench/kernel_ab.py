@@ -1,6 +1,6 @@
 """Kernels of this checkout against another version's, alternating on the card.
 
-    python -m flatnav_tpu_torch.bench.kernel_ab --baseline DIR [--reps 10] [--cases k2,k1]
+    python -m flatnav_tpu_torch.bench.kernel_ab --baseline DIR [DIR ...] [--reps 10] [--cases k2,k1]
     python -m flatnav_tpu_torch.bench.kernel_ab --cases k3 [--baseline DIR] [--k3 phaseB-1M,...]
 
 DIR holds the other version's `gather_distance.cu`, `fused_scan.cu` and/or
@@ -16,7 +16,11 @@ kernels are called through their wrappers (`gather_distances`,
 `scan_buckets`). Every case is timed with CUDA events (`measure.timed`: the
 mean of `--reps` calls after one warm-up call) in the order base, new, ...,
 new, base, so a drift of the card's clocks shows as a difference between the
-two readings of one kernel.
+two readings of one kernel. Further DIRs after the first are K1 copies
+timed beside it (`--cases k1`: each its own "baseN" line, e.g. copies of
+this source with one design choice changed or one part taken out); their
+results are printed against the first's, which alone this checkout's are
+held to; K2 and K3 take the first DIR.
 
 Cases, at the main path's shapes, the 1M scan's and the north-star shapes:
   K2 (`--k2`, `K2_CASES`): hop (B=1024, C=512, d=128 float32 over 100,000
@@ -31,8 +35,10 @@ Cases, at the main path's shapes, the 1M scan's and the north-star shapes:
   T=2048, L=16), path (1024 x 108,192 rows, 100,000 valid), gist (d=960),
   angular (d=100, padded to 104 for this checkout), u8-10M (uint8 rows and
   queries, 10,000,000 rows, T=32768, L=256), u8-100M (512 queries),
-  u8-10M-bf16q (u8-10M with bf16 queries: "mma"), spacev-10M and
-  spacev-100M (MS SPACEV's int8 d=100, L2, as u8-10M / u8-100M) and
+  u8-10M-bf16q (u8-10M with bf16 queries: "wgmma_mixed", the parent's
+  "mma"), spacev-10M and spacev-100M (MS SPACEV's int8 d=100, L2, as
+  u8-10M / u8-100M), spacev-10M-bf16q (spacev-10M with bf16 queries:
+  "wgmma_mixed" by the packed copies) and
   glove-25 / glove-50 (1,183,514 normalised rows, IP, 4096 queries, padded
   to 32 / 56 columns for the kernel; T=4096, L=32), openai-1536 and
   openai-3072 (1,000,000 normalised rows, IP, 4096 queries: OpenAI's
@@ -47,8 +53,10 @@ Cases, at the main path's shapes, the 1M scan's and the north-star shapes:
   launched as each named variant whose rule admits the case's operands.
 Each line gives the bound (`measure.gather_bound` / `measure.scan_bound`,
 at the table's d before any padding) and, for K1, the plain version's time
-and the time of torch.matmul bf16 (and torch._int_mm for 8-bit rows, with
-d padded to a multiple of 8) on the same inputs.
+and the time of torch.matmul bf16 (also on a copy padded with zero columns
+to a multiple of 8 where d is not one, as `fused_knn` pads bf16 copies;
+and torch._int_mm for 8-bit rows, with d padded to a multiple of 8) on the
+same inputs.
 
 K3 (`--cases k3`) at its callers' shapes (`K3_CASES`, and `K3_SEEDED`:
 a scan's tile merged into its running k; `--k3` picks them): `select_k`
@@ -81,10 +89,10 @@ from flatnav_tpu_torch import _build
 from flatnav_tpu_torch.bench.measure import card, gather_bound, scan_bound, select_bound, timed
 from flatnav_tpu_torch.ops.distances import squared_norms
 from flatnav_tpu_torch.bench._northstar import int8_operands
-from flatnav_tpu_torch.ops import fused_scan
 from flatnav_tpu_torch.ops.fused_scan import (
     _ROW_TYPES,
     VARIANTS,
+    launch_as,
     scan_buckets,
     scan_buckets_plain,
     scan_operands,
@@ -253,6 +261,8 @@ K1_CASES = {
                      "l2"),
     "spacev-10M": (4096, 10_000_000, 10_000_000, 100, torch.int8, torch.int8, 32768, 256, "l2"),
     "spacev-100M": (512, 100_000_000, 100_000_000, 100, torch.int8, torch.int8, 32768, 256, "l2"),
+    "spacev-10M-bf16q": (4096, 10_000_000, 10_000_000, 100, torch.int8, torch.bfloat16, 32768,
+                         256, "l2"),
     "glove-25": (4096, 1_183_514, 1_183_514, 25, torch.bfloat16, torch.bfloat16, 4096, 32, "ip"),
     "glove-50": (4096, 1_183_514, 1_183_514, 50, torch.bfloat16, torch.bfloat16, 4096, 32, "ip"),
     "openai-1536": (4096, 1_000_000, 1_000_000, 1536, torch.bfloat16, torch.bfloat16, 2048, 16,
@@ -286,21 +296,26 @@ def _refuses(base: BaseEntry, **args) -> bool:
     return base.fn(*(args[n] for n in base.names)) == 1
 
 
-def _launch_as(variant, q, rows, pen, nlim, t, L, out_min, out_id) -> int:
-    """This checkout's K1 launched as `variant` (its C entry's return code)."""
-    return fused_scan._lib()(
-        q.data_ptr(), _ROW_TYPES[q.dtype], rows.data_ptr(), _ROW_TYPES[rows.dtype],
-        pen.data_ptr(), q.shape[0], rows.shape[0], rows.shape[1], nlim, t, L, out_min.shape[1],
-        VARIANTS[variant], out_min.data_ptr(), out_id.data_ptr(), _stream())
+def _base_args(variant, q, rows, pen, nlim, t, L, out_min, out_id) -> dict:
+    """A baseline K1 entry's arguments by name, for a launch as `variant`."""
+    return dict(q=q.data_ptr(), q_type=_ROW_TYPES[q.dtype], rows=rows.data_ptr(),
+                row_type=_ROW_TYPES[rows.dtype], pen=pen.data_ptr(), qc=q.shape[0],
+                n=rows.shape[0], d=rows.shape[1], nlim=nlim, t=t, L=L, nb=out_min.shape[1],
+                variant=VARIANTS[variant], out_min=out_min.data_ptr(),
+                out_id=out_id.data_ptr(), stream=_stream())
 
 
-def k1_cases(base: BaseEntry, reps: int, names: list[str], also: list[str] = ()) -> None:
-    """Each case: the baseline entry on what its `fused_knn` gave it (see
+def k1_cases(bases: list[BaseEntry], reps: int, names: list[str], also: list[str] = ()) -> None:
+    """Each case: each baseline entry on what its `fused_knn` gave it (see
     the module's docstring), this checkout's `scan_buckets` on what
     `fused_knn` gives it now (`scan_operands`), each `also` variant that
     admits these operands, the plain version once, and the library
     yardsticks: a bf16 `torch.matmul` of the same product and, for 8-bit
-    rows and queries, `torch._int_mm` (row chunks of at most 2 GiB output)."""
+    rows and queries, `torch._int_mm` (row chunks of at most 2 GiB output).
+    This checkout's results are held to the first baseline's (to the plain
+    version's where it refuses the launch), bit-equal on 8-bit rows; the
+    further baselines' are printed against the same, not held to them (a
+    copy with a part taken out computes something else)."""
     for name in names:
         qc, n, nlim, d, dtype, qdtype, t, L, metric = K1_CASES[name]
         rows, q = _k1_inputs(qc, n, d, dtype, qdtype, metric)
@@ -310,54 +325,58 @@ def k1_cases(base: BaseEntry, reps: int, names: list[str], also: list[str] = ())
                else torch.zeros(n, dtype=torch.float32, device="cuda"))
         nb = -(-n // t) * (t // L)
         variant = scan_variant(q_new, rows_new, pen, t, L)
-        om = torch.empty((qc, nb), device="cuda")
-        oi = torch.empty((qc, nb), dtype=torch.int32, device="cuda")
-        base_variant, bq, brows = variant, q_new, rows_new
-        if "q_type" not in base.names:  # an entry without 8-bit queries: bf16, unpadded rows
-            base_variant = "wgmma" if variant == "wgmma" and rows_new is rows else "mma"
-            bq, brows = q_bf, rows
-        base_args = lambda: dict(  # noqa: E731
-            q=bq.data_ptr(), q_type=_ROW_TYPES[bq.dtype], rows=brows.data_ptr(),
-            row_type=_ROW_TYPES[brows.dtype], pen=pen.data_ptr(), qc=qc, n=n,
-            d=brows.shape[1], nlim=nlim, t=t, L=L, nb=nb, variant=VARIANTS[base_variant],
-            out_min=om.data_ptr(), out_id=oi.data_ptr(), stream=_stream())
-        if "q_type" in base.names and _refuses(base, **base_args()):
-            # a parent without this variant: its fused_knn gave "mma" bf16 queries
-            base_variant, bq = "mma", q_new.to(torch.bfloat16)
-        fns = {f"new {variant}": lambda: scan_buckets(q_new, rows_new, pen, nlim, t, L)}
-        base_refuses = _refuses(base, **base_args())  # e.g. "mma" past its shared memory
-        if base_refuses:
-            print(f"K1 {name}: the baseline refuses this launch ({base_variant}); new alone")
-        else:
-            fns = {f"base {base_variant}": lambda: base(**base_args()), **fns}
+        fns, outs = {}, {}
+        for i, base in enumerate(bases):
+            out = (torch.empty((qc, nb), device="cuda"),
+                   torch.empty((qc, nb), dtype=torch.int32, device="cuda"))
+            base_variant, bq, brows = variant, q_new, rows_new
+            if "q_type" not in base.names:  # an entry without 8-bit queries: bf16, unpadded rows
+                base_variant = "wgmma" if variant == "wgmma" and rows_new is rows else "mma"
+                bq, brows = q_bf, rows
+            args = _base_args(base_variant, bq, brows, pen, nlim, t, L, *out)
+            if "q_type" in base.names and _refuses(base, **args):
+                # a parent without this variant: its fused_knn gave "mma" bf16 queries
+                base_variant, bq = "mma", q_new.to(torch.bfloat16)
+                args = _base_args(base_variant, bq, brows, pen, nlim, t, L, *out)
+            label = f"base{i + 1 if i else ''} {base_variant}"
+            if _refuses(base, **args):  # e.g. "mma" past its shared memory
+                print(f"K1 {name}: {label.split()[0]} refuses this launch; not timed")
+                continue
+            fns[label] = lambda b=base, a=args: b(**a)
+            outs[label] = out
+        fns[f"new {variant}"] = lambda: scan_buckets(q_new, rows_new, pen, nlim, t, L)
         alt_out = {}
         for alt in also:
             if alt == variant:
                 continue
-            ao = (torch.empty_like(om), torch.empty_like(oi))
-            if _launch_as(alt, q_new, rows_new, pen, nlim, t, L, *ao) == 0:
-                alt_out[alt] = ao
+            ao = (torch.empty((qc, nb), device="cuda"),
+                  torch.empty((qc, nb), dtype=torch.int32, device="cuda"))
+            if launch_as(alt, q_new, rows_new, pen, nlim, t, L, *ao) == 0:
+                alt_out[f"as {alt}"] = ao
                 fns[f"new as {alt}"] = (lambda a=alt, o=ao: _build.check(
-                    _launch_as(a, q_new, rows_new, pen, nlim, t, L, *o), f"K1 as {a}"))
+                    launch_as(a, q_new, rows_new, pen, nlim, t, L, *o), f"K1 as {a}"))
         times = alternate(fns, reps)
-        new_min, new_id = scan_buckets(q_new, rows_new, pen, nlim, t, L)
-        if base_refuses:  # hold the new kernel to the plain version instead
-            om, oi = scan_buckets_plain(q_new, rows_new, pen, nlim, t, L)
-        fin = torch.isfinite(om)
-        for label, (got_min, got_id) in {"new": (new_min, new_id), **alt_out}.items():
-            err = float((got_min[fin] - om[fin]).abs().max())
-            same = float((got_id == oi).float().mean())
-            exact = torch.equal(got_min, om) and torch.equal(got_id, oi)
-            print(f"  {label if label == 'new' else 'as ' + label} against "
-                  f"{'plain' if base_refuses else 'base'}: max abs diff "
+        held = {"new": scan_buckets(q_new, rows_new, pen, nlim, t, L), **alt_out}
+        ref = next((k for k in outs if k.startswith("base ")), None)
+        want = outs.pop(ref) if ref else scan_buckets_plain(q_new, rows_new, pen, nlim, t, L)
+        fin = torch.isfinite(want[0])
+        for label, (got_min, got_id) in {**held, **outs}.items():
+            err = float((got_min[fin] - want[0][fin]).abs().max())
+            same = float((got_id == want[1]).float().mean())
+            exact = torch.equal(got_min, want[0]) and torch.equal(got_id, want[1])
+            print(f"  {label} against {'base' if ref else 'plain'}: max abs diff "
                   f"{err:g}, ids equal {100 * same:.3f}%{' (bit-equal)' if exact else ''}")
-            if dtype != torch.bfloat16 and not exact:
+            if label in held and dtype != torch.bfloat16 and not exact:
                 raise RuntimeError(f"K1 {name}: 8-bit keys differ from the baseline's")
-        del new_min, new_id, om, oi, alt_out
+        del held, outs, want, alt_out
         times["plain"] = [timed(lambda: scan_buckets_plain(q_new, rows_new, pen, nlim, t, L),
                                 reps=1, warmup=0)]
         del rows_new
         times["torch.matmul bf16"] = [_chunked_matmul_ms(q_bf, rows.to(torch.bfloat16), reps)]
+        if d % 8:
+            dp = -(-d // 8) * 8
+            pad = lambda x: torch.nn.functional.pad(x.to(torch.bfloat16), (0, dp - d))  # noqa: E731
+            times[f"torch.matmul bf16 d={dp}"] = [_chunked_matmul_ms(pad(q), pad(rows), reps)]
         if dtype != torch.bfloat16 and q.dtype == dtype:
             q8, rows8 = int8_operands(q, rows)
             times["torch._int_mm"] = [_chunked_int_mm_ms(q8, rows8, reps)]
@@ -518,8 +537,9 @@ def k3_cases(reps: int, names: list[str], base: BaseEntry | None = None) -> list
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--baseline", type=Path,
-                    help="the other version's csrc (needed by k1 and k2; k3 optional)")
+    ap.add_argument("--baseline", type=Path, nargs="+",
+                    help="the other version's csrc (needed by k1 and k2; k3 optional), "
+                         "then K1 copies timed beside it")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--cases", default="k2,k1", help="comma-separated: k2, k1, k3")
     ap.add_argument("--k1", default=",".join(K1_CASES),
@@ -541,18 +561,20 @@ def main(argv=None) -> int:
         return 2
     _build.build([_SOURCES[c][0] for c in cases])
     with_base = ab + (["k3"] if "k3" in cases and args.baseline is not None else [])
-    base = build_baseline(args.baseline, with_base) if with_base else {}
-    print(f"{card()}; torch {torch.__version__}; baseline {args.baseline}")
+    base = build_baseline(args.baseline[0], with_base) if with_base else {}
+    copies = [build_baseline(d, ["k1"])["k1"] for d in args.baseline[1:]] if "k1" in cases else []
+    labels = [f"base{i + 1 if i else ''} {d}" for i, d in enumerate(args.baseline or [])]
+    print(f"{card()}; torch {torch.__version__}; baseline {', '.join(labels) or None}")
     _settle()
     rng = np.random.default_rng(0)
     if "k2" in cases:
         k2_cases(base["k2"], rng, args.reps, args.k2.split(","))
     if "k1" in cases:
-        k1_cases(base["k1"], args.reps, args.k1.split(","),
+        k1_cases([base["k1"], *copies], args.reps, args.k1.split(","),
                  [v for v in args.also.split(",") if v])
     if "k3" in cases:
         print(json.dumps({"card": card(), "baseline": None if "k3" not in base else
-                          str(args.baseline),
+                          str(args.baseline[0]),
                           "k3": k3_cases(args.reps, args.k3.split(","), base.get("k3"))}))
     return 0
 

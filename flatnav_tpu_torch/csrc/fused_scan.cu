@@ -17,7 +17,7 @@
 // table is 256 MB. Every block re-reads its rows from L2, so the query tile
 // a block holds sets the L2 traffic: (B / queries per block) x table bytes.
 //
-// Seven variants. The wrapper's scan_variant (ops/fused_scan.py) picks one
+// Eight variants. The wrapper's scan_variant (ops/fused_scan.py) picks one
 // by shape and type alone; the entry refuses a launch outside the rule of
 // the variant it names.
 //
@@ -124,9 +124,27 @@
 // operations (1M x 1536, 4096 queries: 12.6 TFLOP, 12.7 ms at 989
 // TFLOP/s).
 //
-// "mma" (the first port; every shape no other variant takes: bf16 queries
-// against 8-bit rows, 8-bit rows with d % 4 != 0 or d > 256, L > 256,
-// pointers off 16 bytes): one block
+// "wgmma_mixed" (uint8 or int8 rows against bf16 queries, d % 4 == 0, d <=
+// 256: the TPU kernel's own form for 8-bit tables, which widens the rows to
+// bf16 in VMEM; float queries of a BigANN- or SPACEV-class table). The
+// narrow operand goes through registers: the rows are wgmma's A, 64 rows
+// (buckets) a consumer warpgroup, read from the 8-bit ring (by TMA, or by
+// "wgmma_int8_packed"'s copies where d % 16 != 0) and widened to bf16 pairs
+// in registers (exact for 8-bit values); the bf16 queries are B, 128 a
+// block, stationary in shared memory. A slice of 128 rows x 128 columns
+// moves 96 KB through shared memory (16 KB written by the copies, 16 KB of
+// A fragments read, 64 KB of B read by the two warpgroups), where "wgmma"
+// on bf16 rows moves 128 KB and a second, bf16, ring would move 160 KB.
+// The accumulator is [buckets x queries]: the fold is elementwise as in
+// "wgmma", with one penalty a row, and each warp store of the minima covers
+// whole 32-byte sectors. Integer-valued queries give keys bit-equal to the
+// plain version's (every partial sum an integer below 2^24); other bf16
+// queries sum in another order. Bound: operations at the bf16 rate (u8 10M
+// x 128, 4096 queries: 10.5 TFLOP, 10.6 ms at 989 TFLOP/s).
+//
+// "mma" (the first port; every shape no other variant takes: 8-bit rows
+// with d % 4 != 0 or d > 256, L > 256, pointers off 16 bytes, bf16 rows of
+// a width TMA cannot stride): one block
 // per (row tile j, 128 buckets, 64 queries), 256 threads. The query tile
 // stays in shared memory; each 64-deep chunk of the slice's rows is staged
 // synchronously (converted to bf16: exact for 8-bit values, and with
@@ -486,6 +504,10 @@ __device__ __forceinline__ void pin(float (&d)[32]) {
 __device__ __forceinline__ void pin(int32_t (&d)[32]) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+__device__ __forceinline__ void pin(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 #define WGMMA_D32(c)                                                                         \
@@ -975,6 +997,386 @@ cudaError_t launch(const void* q, const void* rows, const void* pen, int qc, int
 
 }  // namespace wgmma_scan
 
+// --------------------------------------------------------- wgmma_mixed
+
+namespace mixed_scan {
+
+using namespace tma;
+using wgmma_scan::BN;       // buckets per block: two consumer warpgroups x 64 rows
+using wgmma_scan::STAGES;   // ring of [128 rows x 128 8-bit columns] buffers
+using wgmma_scan::THREADS;  // producer warpgroup + two consumer warpgroups
+
+constexpr int BM = 128;             // queries per block: the N of one m64n128k16 product
+constexpr int Q_CHUNK = BM * 128;   // bytes of 64 bf16 columns of the query tile
+constexpr int R_STAGE = BN * 128;   // bytes of a ring buffer
+
+// d[64 x 128] (+)= A[64 x 16] B[128 x 16]^T; A from registers (warp w of
+// the warpgroup holds rows 16w .., in mma.m16n8k16's A-fragment layout), B
+// K-major in 128-byte-swizzled shared memory; scale_d = 0 overwrites d
+__device__ __forceinline__ void mma(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                    int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// One word of four 8-bit columns -> two bf16 pairs (bytes 0, 1 and 2, 3)
+// of the columns' values times 2^-7 (SCALE), exactly: bf16 bits 0x00XX are
+// XX * 2^-133 for every byte XX (subnormal below 0x80, the first binade from
+// it on), so one packed fma by 2^126 gives XX * 2^-7; an int8 byte, its top
+// bit flipped, is x + 128, and the fma subtracts 1 = 128 * 2^-7. Every
+// product and partial sum of the wgmma is then the unscaled one times 2^-7,
+// rounded alike, and the fold multiplies by 2^7 back (fma(-2 / SCALE, acc,
+// pen)).
+constexpr float SCALE = 1.f / 128;
+
+template <bool SIGNED>
+__device__ __forceinline__ uint32_t scale_pair(uint32_t x) {
+  uint32_t y;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;"
+      : "=r"(y)
+      : "r"(x), "r"(0x7E807E80u), "r"(SIGNED ? 0xBF80BF80u : 0x80008000u));  // 2^126; -1 or -0
+  return y;
+}
+
+template <bool SIGNED>
+__device__ __forceinline__ void widen(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  if (SIGNED) w ^= 0x80808080u;
+  lo = scale_pair<SIGNED>(__byte_perm(w, 0, 0x4140));
+  hi = scale_pair<SIGNED>(__byte_perm(w, 0, 0x4342));
+}
+
+__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// The depth order of the products. A thread of a consumer warp (lane 4g +
+// t) supplies, for each k16 step, row columns 2t, 2t+1 and 2t+8, 2t+9 of
+// its two rows. Reading them as they lie would take 2-byte loads, so the
+// k-steps run over the columns in another order: within each 64-column
+// group, physical column 16t + 4s + 2h + e (byte e of half h of word s of
+// the thread's 16-byte chunk t) is logical column 16s + 8h + 2t + e of
+// k-step s, and one 16-byte load a row and group serves four k-steps. A
+// dot product does not depend on the order of its terms, so the query tile
+// holds the queries' columns in the same logical order: physical bf16 pair
+// m = 8t + 2s + h of a group sits at logical pair 8s + 4h + t.
+__device__ __forceinline__ int logical_pair(int m) {
+  return ((m & 6) << 2) | ((m & 1) << 2) | (m >> 3);
+}
+
+// The block's BM bf16 queries into the query tile (zeroed: the pairs past
+// d and the queries past qc stay zero) by 4-byte cp.async, each pair at its
+// logical place under the 128-byte swizzle; all 128 producer threads, each
+// arriving on qbar once its copies have landed. Warp w copies queries w, w
+// + 4, ..., a row's 64-column group a warp instruction (lane = pair).
+template <int KH>
+__device__ __forceinline__ void pack_queries(unsigned char* qs, const __nv_bfloat16* __restrict__ q,
+                                             int q0, int qc, int d, int tid, uint64_t* qbar) {
+  const int warp = tid / 32, lane = tid % 32;
+  const int w = logical_pair(lane);
+  for (int r = warp; r < BM && q0 + r < qc; r += 4)
+#pragma unroll
+    for (int kq = 0; kq < KH; ++kq)
+      if (64 * kq + 2 * lane < d)  // d % 4 == 0: a pair is all in or all out
+        cp_async4(smem_u32(qs + kq * Q_CHUNK + wgmma_scan::swz(r, w)),
+                  q + (size_t)(q0 + r) * d + 64 * kq + 2 * lane);
+  cp_async_arrive(qbar);
+}
+
+// Rows TMA cannot stride (d % 16 != 0), as "wgmma_int8_packed"'s pack_rows
+// copies them (the same ring loads, barriers and swizzled places), with the
+// addresses stepped instead of recomputed: warp w copies rows w + 8m at
+// byte c0 of their 128 and rows w + 4 + 8m at c1 (row % 8 = w, w + 4), so
+// a 4-byte copy costs a few instructions of the producer warps, which issue
+// on the consumers' schedulers.
+template <int KCS>
+__device__ __forceinline__ void copy_rows(unsigned char* ring, uint64_t* full, uint64_t* empty,
+                                          const uint8_t* __restrict__ rows, int n, int d,
+                                          int row0, int s, int L, int tid) {
+  const int warp = tid / 32, lane = tid % 32;
+  const uint32_t c0 = warp * 128 + ((((lane >> 2) ^ warp) << 4) | ((lane & 3) << 2));
+  const uint32_t c1 = (c0 ^ 64) + 512;
+  const size_t step = 8 * (size_t)d;
+  for (int g = 0; g < L * KCS; ++g) {
+    const int kc = g % KCS;
+    const long long r0 = (long long)row0 + (long long)(g / KCS) * s;
+    const int nv = (int)max(0LL, min((long long)BN, n - r0));
+    mbar_wait(&empty[g % STAGES], ((g / STAGES) & 1) ^ 1);
+    if (4 * (32 * kc + lane) < d) {
+      const uint8_t* src = rows + (size_t)(r0 + warp) * d + 128 * kc + 4 * lane;
+      uint32_t dst = smem_u32(ring + (g % STAGES) * R_STAGE);
+      int r = warp;
+      for (; r + 4 < nv; r += 8, src += step, dst += 1024) {
+        cp_async4(dst + c0, src);
+        cp_async4(dst + c1, src + 4 * d);
+      }
+      if (r < nv) cp_async4(dst + c0, src);
+    }
+    cp_async_arrive(&full[g % STAGES]);
+  }
+}
+
+// Fold slice l's 64 x 128 (bucket, query) accumulator into the running
+// min: element 4i + 2r + e sits at row (bucket) 16 warp + lane/4 + 8r of
+// the warpgroup's 64 and query 8i + 2 (lane % 4) + e; its penalty is
+// pv[r], its running min best[4i + 2r + e] and the slice attaining it byte
+// 2r + e of arg[i]. acc holds the dots times SCALE; 2*dot = (2 / SCALE)*acc
+// is exact, so one fma(-2 / SCALE, acc, pen) rounds as pen - 2*dot does.
+__device__ __forceinline__ void fold(float (&acc)[64], const float (&pv)[2], float (&best)[64],
+                                     uint32_t (&arg)[16], int l) {
+  pin(acc);
+  const uint32_t lsplat = (uint32_t)l * 0x01010101u;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const float key = __fmaf_rn(-2.f / SCALE, acc[4 * i + x], pv[x >> 1]);
+      const bool lt = key < best[4 * i + x];
+      best[4 * i + x] = lt ? key : best[4 * i + x];
+      const uint32_t sel = (0x3210u & ~(0xfu << (4 * x))) | (4u << (4 * x));
+      arg[i] = lt ? __byte_perm(arg[i], lsplat, sel) : arg[i];
+    }
+  }
+}
+
+// One block per (row tile j, 128 buckets, 128 queries). The producer
+// warpgroup copies the queries once into a stationary tile (pack_queries)
+// and streams each slice's 128 rows of 8-bit columns through the ring: by
+// TMA (d % 16 == 0; one thread) or, for rows TMA cannot stride, by 4-byte
+// copies (copy_rows; all 128 threads). Consumer warpgroup cw takes rows
+// (buckets) 64 cw .. 64 cw + 63 of every slice: it reads its rows' bytes
+// from the ring (two 16-byte loads a row and 128-column chunk), widens
+// them to bf16 in registers, issues one m64n128k16 product a k16 step with
+// them as A against the 128-query tile as B, frees the ring buffer once the
+// products are done, and folds. The two warpgroups' products and folds
+// overlap as they fall (turns taken by named barriers, and a fold of one
+// 64-query half under the other half's products, both read slower:
+// PERF.md). KH = ceil(d / 64) groups of 64 columns, two to a ring load.
+template <int KH, bool SIGNED>
+__global__ void __launch_bounds__(THREADS, 1)
+scan_kernel(const __grid_constant__ CUtensorMap rmap, const __nv_bfloat16* __restrict__ q,
+            const uint8_t* __restrict__ rows8, int packed, int n, int d,
+            const float* __restrict__ pen, int qc, int nlim, int t, int L, int nb, int nqb,
+            float* __restrict__ out_min, int* __restrict__ out_id) {
+  constexpr int KCS = (KH + 1) / 2;  // ring loads a slice
+  // a ring buffer holds the same depth chunk at every fill, so copied rows'
+  // pad columns, zeroed once, stay zero
+  static_assert(STAGES % KCS == 0, "a buffer keeps its depth chunk");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* ring = base;                    // [STAGES][BN rows x 128 B]
+  unsigned char* qs = base + STAGES * R_STAGE;   // [KH][BM rows x 128 B]
+  uint64_t* full = reinterpret_cast<uint64_t*>(qs + KH * Q_CHUNK);
+  uint64_t* empty = full + STAGES;
+  uint64_t* qbar = empty + STAGES;
+
+  const int s = t / L;
+  const int tiles_s = s / BN;
+  const int q0 = (blockIdx.x % nqb) * BM;
+  const int rest = blockIdx.x / nqb;
+  const int j = rest / tiles_s;
+  const int b0 = (rest % tiles_s) * BN;
+  const int row0 = j * t + b0;  // global row of bucket b0 in slice 0
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&full[i], packed ? 128 : 1);
+      mbar_init(&empty[i], 8);  // one arrival per consumer warp
+    }
+    mbar_init(qbar, 128);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  {  // the copies write only columns below d: zero the query tile, and the ring for packed rows
+    uint4* z = reinterpret_cast<uint4*>(packed ? ring : qs);
+    const int words = ((packed ? STAGES * R_STAGE : 0) + KH * Q_CHUNK) / 16;
+    for (int i = threadIdx.x; i < words; i += THREADS) z[i] = make_uint4(0, 0, 0, 0);
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    pack_queries<KH>(qs, q, q0, qc, d, threadIdx.x, qbar);
+    if (packed) {
+      copy_rows<KCS>(ring, full, empty, rows8, n, d, row0, s, L, threadIdx.x);
+    } else if (threadIdx.x == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int l = 0; l < L; ++l)
+        for (int kc = 0; kc < KCS; ++kc) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_expect_tx(&full[stage], R_STAGE);
+          load(ring + stage * R_STAGE, &rmap, &full[stage], kc * 128, row0 + l * s);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int ct = threadIdx.x - 128;
+    const int cw = ct / 128;
+    const int warp = (ct % 128) / 32, lane = ct % 32;
+    const int g = lane / 4, tq = lane % 4;
+    const int rloc = 64 * cw + 16 * warp + g;  // the thread's rows: rloc and rloc + 8
+    float acc[64], best[64];
+    uint32_t arg[16];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      acc[i] = 0.f;
+      best[i] = INFINITY;
+    }
+#pragma unroll
+    for (int i = 0; i < 16; ++i) arg[i] = 0;
+
+    // the B descriptor of k-step s of query box kq is qd + (kq Q_CHUNK + 32 s) / 16
+    const uint64_t qd = desc<128>(smem_u32(qs));
+    // the thread's chunk t of group h of row rloc (row rloc + 8 is 1024 bytes on)
+    const unsigned char* rbase = ring + rloc * 128;
+    const int off0 = (tq ^ g) << 4, off1 = ((4 + tq) ^ g) << 4;
+    mbar_wait(qbar, 0);
+    fence_async_smem();  // the zeros and the producers' cp.async, read by wgmma
+
+    auto load_pen = [&](float (&pv)[2], int l) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int col = row0 + l * s + rloc + 8 * r;
+        pv[r] = col < nlim ? __ldg(pen + col) : INFINITY;  // nlim <= n
+      }
+    };
+    float pv[2], pn[2];
+    load_pen(pv, 0);
+    for (int l = 0; l < L; ++l) {
+#pragma unroll
+      for (int c = 0; c < KCS; ++c) {
+        const int hc = 2 * c + 1 < KH ? 2 : 1;  // 64-column groups in this load
+        const int gl = l * KCS + c;
+        const int stage = gl % STAGES;
+        mbar_wait(&full[stage], (gl / STAGES) & 1);
+        uint4 x[2][2];  // [row r][group h]
+        const unsigned char* rb = rbase + stage * R_STAGE;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          x[r][0] = *reinterpret_cast<const uint4*>(rb + r * 1024 + off0);
+          if (hc == 2) x[r][1] = *reinterpret_cast<const uint4*>(rb + r * 1024 + off1);
+        }
+        uint32_t a[8][4];
+#pragma unroll
+        for (int h = 0; h < hc; ++h)
+#pragma unroll
+          for (int w = 0; w < 4; ++w) {
+            widen<SIGNED>(word(x[0][h], w), a[4 * h + w][0], a[4 * h + w][2]);  // row rloc
+            widen<SIGNED>(word(x[1][h], w), a[4 * h + w][1], a[4 * h + w][3]);  // row rloc + 8
+          }
+        if (c == 0) pin(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4 * hc; ++ks)
+          mma(acc, a[ks], qd + (((2 * c + ks / 4) * Q_CHUNK + (ks % 4) * 32) >> 4), (c | ks) != 0);
+        wgmma_commit();
+        // A buffer is freed once the products that consumed its widened
+        // words are done. Freed right after its loads, the arrival issues
+        // before their data return (ptxas waits on no load for it), and
+        // the TMA route gave wrong keys at 10M rows: the release orders
+        // these generic-proxy reads, apparently not against the next
+        // fill's TMA (async-proxy) writes.
+        if (c + 1 < KCS) {
+          wgmma_wait<0>();  // a[] is refilled for the next load
+          wgmma_scan::release(&empty[stage], lane);
+        }
+      }
+      // the next slice's penalties: after this slice's fence, used a slice later
+      if (l + 1 < L) load_pen(pn, l + 1);
+      wgmma_wait<0>();
+      wgmma_scan::release(&empty[(l * KCS + KCS - 1) % STAGES], lane);
+      fold(acc, pv, best, arg, l);
+      pv[0] = pn[0];
+      pv[1] = pn[1];
+    }
+
+    // Each warp store writes 8 consecutive buckets (32 bytes, a whole
+    // sector) of 4 queries: the [queries, buckets] output needs no staging.
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int gq = q0 + 8 * i + 2 * tq + (x & 1);
+        if (gq >= qc) continue;
+        const int bl = rloc + 8 * (x >> 1);  // the bucket's row in the block's slice
+        const size_t o = (size_t)gq * nb + (size_t)j * s + b0 + bl;
+        out_min[o] = best[4 * i + x];
+        out_id[o] = row0 + (int)((arg[i] >> (8 * x)) & 0xff) * s + bl;
+      }
+  }
+}
+
+// uint8 or int8 rows against bf16 queries: d % 4 == 0, d <= 256 (|sum| of
+// integer products stays below 2^24 for integer queries of magnitude <=
+// 255), L <= 256, whole 128-bucket tiles, aligned pointers
+bool fits(const void* q, const void* rows, const void* pen, int d, int t, int L) {
+  return d > 0 && d % 4 == 0 && d <= 256 && L <= 256 && t % L == 0 && (t / L) % BN == 0 &&
+         (uintptr_t)q % 16 == 0 && (uintptr_t)rows % 16 == 0 && (uintptr_t)pen % 8 == 0;
+}
+
+template <int KH, bool SIGNED>
+cudaError_t run(const CUtensorMap& rmap, const void* q, const void* rows, int packed, int n, int d,
+                const void* pen, int qc, int nlim, int t, int L, int nb, int nqb, long long blocks,
+                void* out_min, void* out_id, cudaStream_t stream) {
+  const size_t smem = 1024 + (size_t)STAGES * R_STAGE + (size_t)KH * Q_CHUNK +
+                      (2 * STAGES + 1) * sizeof(uint64_t);
+  auto kern = scan_kernel<KH, SIGNED>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return cudaGetLastError();  // clears it for the next launch
+  kern<<<(unsigned)blocks, THREADS, smem, stream>>>(
+      rmap, static_cast<const __nv_bfloat16*>(q), static_cast<const uint8_t*>(rows), packed, n,
+      d, static_cast<const float*>(pen), qc, nlim, t, L, nb, nqb, static_cast<float*>(out_min),
+      static_cast<int*>(out_id));
+  return cudaGetLastError();
+}
+
+template <bool SIGNED>
+cudaError_t launch(const void* q, const void* rows, const void* pen, int qc, int n, int d,
+                   int nlim, int t, int L, int nb, void* out_min, void* out_id,
+                   cudaStream_t stream) {
+  const int packed = d % 16 != 0;  // rows TMA cannot stride
+  CUtensorMap rmap{};
+  if (!packed && !make_map<Int8<SIGNED>>(&rmap, rows, n, d, BN)) return cudaErrorInvalidValue;
+  const int nqb = (qc + BM - 1) / BM;
+  const int n_tiles = (n + t - 1) / t;
+  const long long blocks = (long long)nqb * n_tiles * ((t / L) / BN);
+#define RUN_(K)                                                                               \
+  return run<K, SIGNED>(rmap, q, rows, packed, n, d, pen, qc, nlim, t, L, nb, nqb, blocks, \
+                        out_min, out_id, stream)
+  switch ((d + 63) / 64) {
+    case 1: RUN_(1);
+    case 2: RUN_(2);
+    case 3: RUN_(3);
+    case 4: RUN_(4);
+    default: return cudaErrorInvalidValue;
+  }
+#undef RUN_
+}
+
+}  // namespace mixed_scan
+
 // ---------------------------------------------------------- wgmma_wide
 
 namespace wide_scan {
@@ -1016,11 +1418,6 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
         "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void pin(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // a consumer warp frees a ring buffer in every block of the cluster (the
@@ -1307,7 +1704,7 @@ scan_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
     int g = 0;  // ring loads consumed so far
     for (int l = 0; l < L; ++l) {
       load_pen(pv, pen, row0 + l * s, nlim, lane);
-      wide_scan::pin(acc);
+      pin(acc);
       for (int kc = 0; kc < kcs; ++kc, ++g) {
         const int stage = g % STAGES;
         mbar_wait(&full[stage], (g / STAGES) & 1);
@@ -1325,7 +1722,7 @@ scan_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
       }
       wgmma_wait<0>();
       release(&empty[(g - 1) % STAGES], lane);
-      wide_scan::pin(acc);
+      pin(acc);
       fold_halves<Bf16, 2>(acc, pv, best, arg, l);
     }
     store_tile(best, arg, q0 + 64 * cw + 16 * warp + lane / 4, qc, nb, j, s, b0, row0, lane,
@@ -1366,7 +1763,7 @@ cudaError_t launch(const void* q, const void* rows, const void* pen, int qc, int
 
 // q_type / row_type: 0 = bfloat16, 1 = uint8, 2 = int8. variant: 0 = "mma",
 // 1 = "wgmma", 2 = "wgmma_wide", 3 = "wgmma_int8", 4 = "wgmma_int8_packed",
-// 5 = "wgmma_narrow", 6 = "wgmma_deep", as the wrapper's scan_variant chose it; a launch at a
+// 5 = "wgmma_narrow", 6 = "wgmma_deep", 7 = "wgmma_mixed", as the wrapper's scan_variant chose it; a launch at a
 // shape or type outside that variant's rule returns cudaErrorInvalidValue.
 // Returns cudaGetLastError().
 extern "C" int fused_scan_launch(const void* q, int q_type, const void* rows, int row_type,
@@ -1410,6 +1807,10 @@ extern "C" int fused_scan_launch(const void* q, int q_type, const void* rows, in
     case 6:
       if (!bf16 || !deep_scan::fits(q, rows, pen, d, t, L)) return bad;
       return deep_scan::launch(q, rows, pen, qc, n, d, nlim, t, L, nb, out_min, out_id, s);
+    case 7:  // bf16 queries; uint8 or int8 rows
+      if (q_type != 0 || row_type == 0 || !mixed_scan::fits(q, rows, pen, d, t, L)) return bad;
+      if (row_type == 1) return mixed_scan::launch<false>(q, rows, pen, qc, n, d, nlim, t, L, nb, out_min, out_id, s);
+      return mixed_scan::launch<true>(q, rows, pen, qc, n, d, nlim, t, L, nb, out_min, out_id, s);
     default:
       return bad;
   }

@@ -11,7 +11,7 @@ distances (or, with `exact_rerank=False`, ranked by the kernel's own keys).
 On a CUDA tensor `scan_buckets` launches the hand-written kernel
 `csrc/fused_scan.cu` (it replaces the Pallas TPU kernel
 flatnav_tpu/ops/fused_scan.py:_scan_kernel); on a CPU tensor it runs
-`scan_buckets_plain`. The kernel has seven variants, chosen by shape and
+`scan_buckets_plain`. The kernel has eight variants, chosen by shape and
 type alone (`scan_variant`): "wgmma_narrow" (TMA-fed wgmma on 64-byte
 rows, bf16 with d % 8 == 0 and d <= 32), "wgmma" (the same on 128-byte
 rows, bf16 with d % 8 == 0 and d <= 384; TMA reads the columns of a box
@@ -21,10 +21,13 @@ of two blocks that share each row load), "wgmma_deep" (bf16 with d % 8 ==
 chunk by depth chunk), "wgmma_int8" (integer wgmma,
 8-bit rows and queries of one type, d % 16 == 0), "wgmma_int8_packed"
 (its consumers on 8-bit rows TMA cannot stride, d % 4 == 0, copied into
-shared memory by the block's producer warps; MS SPACEV's d = 100) and
-"mma" (mma.sync; every other shape). `fused_knn` pads a bf16 copy whose d
-is not a multiple of 8 with zero columns, and hands 8-bit queries of an
-8-bit table to the kernel as they are.
+shared memory by the block's producer warps; MS SPACEV's d = 100),
+"wgmma_mixed" (8-bit rows against bf16 queries, d % 4 == 0, d <= 256: the
+TPU kernel's own form for 8-bit tables; the rows are widened to bf16 in
+registers and fed to wgmma from there) and "mma" (mma.sync; every other
+shape). `fused_knn` pads a bf16 copy whose d is not a multiple of 8 with
+zero columns, hands 8-bit queries of an 8-bit table to the kernel as they
+are, and other queries of an 8-bit table as bf16.
 A true neighbor is lost only if another row of its L-bucket scores better,
 or if bf16 rounding pushes its bucket past the shortlist; both are measured
 against the exact oracle in the tests.
@@ -52,7 +55,8 @@ _TILE = 2048
 _L = 16
 
 #: each block streams its 128-bucket share of a [T, d] row tile from L2, once
-#: for every query block (128 queries for the single-block wgmma variants, a
+#: for every query block (128 queries for the single-block wgmma variants
+#: and "wgmma_mixed", a
 #: cluster of 2 x 64 for "wgmma_wide", of 2 x 128 for "wgmma_deep", 64 for
 #: "mma"); 4 MiB per tile keeps
 #: the tiles of the blocks in flight inside the 50 MB L2. Keys and the running
@@ -166,7 +170,7 @@ def scan_buckets_plain(
 ):
     """Plain version of the kernel: per row tile, the [qc, T] keys, then the
     strided bucket min over the L slices (first minimum wins ties). The
-    queries are bf16 or of the rows' 8-bit type; both are exact in f32."""
+    queries are bf16 or 8-bit; both are exact in f32."""
     qc = q_bf.shape[0]
     n = rows.shape[0]
     s = t // L
@@ -193,6 +197,23 @@ def scan_buckets_plain(
     return out_min, out_id
 
 
+def exact_keys(q: torch.Tensor, rows: torch.Tensor) -> bool:
+    """Whether the kernel's minima and ids must be bit-equal to
+    `scan_buckets_plain`'s: 8-bit rows against 8-bit or integer-valued
+    queries small enough that every partial sum is an integer of at most
+    2^24 (d * 255 * max |q| <= 2^24: |q| <= 256 at d = 256), so the order
+    of the sums does not matter. Other keys may differ in the last bits of
+    the f32 sums. Reads the queries back to the host (a device sync); for
+    the tests and the bench, not the scan's path."""
+    if rows.dtype not in _INT8:
+        return False
+    if q.numel() == 0:
+        return True
+    if q.dtype not in _INT8 and not bool(torch.equal(q, q.round())):
+        return False
+    return rows.shape[1] * 255 * float(q.float().abs().amax()) <= 2**24
+
+
 def _lib():
     fn = _build.load("fused_scan").fused_scan_launch
     if not fn.argtypes:
@@ -204,7 +225,10 @@ def _lib():
 
 #: kernel variant -> its number in the C interface
 VARIANTS = {"mma": 0, "wgmma": 1, "wgmma_wide": 2, "wgmma_int8": 3, "wgmma_int8_packed": 4,
-            "wgmma_narrow": 5, "wgmma_deep": 6}
+            "wgmma_narrow": 5, "wgmma_deep": 6, "wgmma_mixed": 7}
+#: variants that take bf16 queries of an 8-bit table (`scan_buckets` widens
+#: 8-bit queries of the other type for them)
+_BF16_QUERIES = ("mma", "wgmma_mixed")
 
 
 def scan_variant(q: torch.Tensor, rows: torch.Tensor, pen: torch.Tensor, t: int, L: int) -> str:
@@ -221,8 +245,10 @@ def scan_variant(q: torch.Tensor, rows: torch.Tensor, pen: torch.Tensor, t: int,
                            d % 16 == 0, d <= 256;
       "wgmma_int8_packed"  the same with d % 4 == 0 and d % 16 != 0 (rows
                            TMA cannot stride: MS SPACEV's d = 100);
-      "mma"                everything else, 8-bit rows with bf16 queries
-                           included.
+      "wgmma_mixed"        uint8 or int8 rows with bf16 queries (or 8-bit
+                           ones of the other type, widened to bf16), d % 4
+                           == 0, d <= 256;
+      "mma"                everything else.
     The C entry refuses a launch outside the rule of the variant it names."""
     d = rows.shape[1]
     common = (
@@ -240,12 +266,26 @@ def scan_variant(q: torch.Tensor, rows: torch.Tensor, pen: torch.Tensor, t: int,
         if d <= 1024:
             return "wgmma_wide"
         return "wgmma_deep"
-    if rows.dtype in _INT8 and q.dtype == rows.dtype and d <= 256:
-        if d % 16 == 0:
-            return "wgmma_int8"
-        if d % 4 == 0:
-            return "wgmma_int8_packed"
+    if rows.dtype in _INT8 and d <= 256 and d % 4 == 0:
+        if q.dtype != rows.dtype:
+            return "wgmma_mixed"
+        return "wgmma_int8" if d % 16 == 0 else "wgmma_int8_packed"
     return "mma"
+
+
+def launch_as(variant: str, q: torch.Tensor, rows: torch.Tensor, pen: torch.Tensor, nlim: int,
+              t: int, L: int, out_min: torch.Tensor, out_id: torch.Tensor) -> int:
+    """K1's C entry launched as `variant` on CUDA operands as `scan_buckets`
+    passes them (nlim <= N; out_min / out_id [qc, nb]) -> the entry's
+    code: 0, or 1 (cudaErrorInvalidValue) where the variant's rule refuses
+    the launch. Counts nothing: `scan_buckets` is the counted path, and the
+    bench times other variants through this."""
+    return _lib()(
+        q.data_ptr(), _ROW_TYPES[q.dtype], rows.data_ptr(), _ROW_TYPES[rows.dtype],
+        pen.data_ptr(), q.shape[0], rows.shape[0], rows.shape[1], nlim, t, L, out_min.shape[1],
+        VARIANTS[variant], out_min.data_ptr(), out_id.data_ptr(),
+        torch.cuda.current_stream(rows.device).cuda_stream,
+    )
 
 
 def scan_buckets(
@@ -255,14 +295,15 @@ def scan_buckets(
     """Phase A: ([qc, nb] f32 bucket minima, [qc, nb] i32 global ids), with
     nb = ceil(N / t) * (t / L).
 
-    q_bf [qc, d] bf16, or of the rows' 8-bit type; rows [N, d] bf16, uint8
+    q_bf [qc, d] bf16, or 8-bit with 8-bit rows; rows [N, d] bf16, uint8
     or int8; pen [N] f32 (the L2 ||row||^2 term, zeros for IP); rows at or
-    past `nlim` score +inf. 8-bit queries that take "mma" are widened to
-    bf16 (exact). `scan_buckets.launches` counts kernel launches, and
-    `scan_buckets.variants` the launches of each variant."""
+    past `nlim` score +inf. 8-bit queries that take "mma" or "wgmma_mixed"
+    are widened to bf16 (exact). `scan_buckets.launches` counts kernel
+    launches, and `scan_buckets.variants` the launches of each variant."""
     if rows.device.type == "cpu":
         return scan_buckets_plain(q_bf, rows, pen, nlim, t, L)
-    if rows.dtype not in _ROW_TYPES or q_bf.dtype not in (torch.bfloat16, rows.dtype):
+    q_types = (torch.bfloat16, *_INT8) if rows.dtype in _INT8 else (torch.bfloat16,)
+    if rows.dtype not in _ROW_TYPES or q_bf.dtype not in q_types:
         raise TypeError(
             f"scan_buckets: unsupported dtypes rows={rows.dtype} q={q_bf.dtype}"
         )
@@ -279,17 +320,12 @@ def scan_buckets(
     if not (q_bf.device == pen.device == rows.device):
         raise ValueError("scan_buckets: tensors are on different devices")
     variant = scan_variant(q_bf, rows, pen, t, L)
-    if variant == "mma":
+    if variant in _BF16_QUERIES:
         q_bf = q_bf.to(torch.bfloat16)
     out_min = torch.empty((qc, nb), dtype=torch.float32, device=rows.device)
     out_id = torch.empty((qc, nb), dtype=torch.int32, device=rows.device)
-    rc = _lib()(
-        q_bf.data_ptr(), _ROW_TYPES[q_bf.dtype], rows.data_ptr(), _ROW_TYPES[rows.dtype],
-        pen.data_ptr(), qc, n, d, min(int(nlim), n), t, L, nb, VARIANTS[variant],
-        out_min.data_ptr(), out_id.data_ptr(),
-        torch.cuda.current_stream(rows.device).cuda_stream,
-    )
-    _build.check(rc, "scan_buckets")
+    _build.check(launch_as(variant, q_bf, rows, pen, min(int(nlim), n), t, L, out_min, out_id),
+                 "scan_buckets")
     scan_buckets.launches += 1
     scan_buckets.variants[variant] += 1
     return out_min, out_id
@@ -315,10 +351,11 @@ def fused_knn(
     """Two-phase kNN scan -> (dists [B, k] ascending, ids [B, k] int32).
 
     Distances are exact (float32, or exact int32 for integer tables) after
-    the rerank. uint8/int8 tables at d <= 257 ride the kernel unpromoted,
-    with exact integer keys (and so do their queries where they have the
-    table's type); other tables are scanned through a bf16 copy, padded
-    with zero columns to a multiple of 8 (`scan_operands`).
+    the rerank. uint8/int8 tables at d <= 257 ride the kernel unpromoted
+    (and so do their queries where they have the table's type; other
+    queries go as bf16, as the JAX package casts them), with exact keys for
+    integer-valued queries; other tables are scanned through a bf16 copy,
+    padded with zero columns to a multiple of 8 (`scan_operands`).
     `bucket_l`, `tile_size`, `query_block` override the automatic shapes
     and `summary_bytes` bounds the phase-A summary (the query batch is
     chunked past it). Phase B is an exact top-`rerank` (`smallest_k`:
@@ -373,4 +410,5 @@ def fused_knn(
     return torch.cat(out_d), torch.cat(out_i)
 
 
-__all__ = ["fused_knn", "scan_buckets", "scan_buckets_plain", "scan_operands", "scan_variant"]
+__all__ = ["fused_knn", "scan_buckets", "scan_buckets_plain", "scan_operands",
+           "scan_variant"]

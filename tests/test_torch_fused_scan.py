@@ -20,7 +20,7 @@ from flatnav_tpu_torch.bench.synth import clustered
 from flatnav_tpu_torch.ops import MetricType, brute_force_knn, fused_knn
 from flatnav_tpu_torch.ops.distances import squared_norms
 from flatnav_tpu_torch.ops.fused_scan import (
-    _L, _QB, _ROWS_BYTES, _SUMMARY_BYTES, _TILE, _pick_shapes, _round_up,
+    _L, _QB, _ROWS_BYTES, _SUMMARY_BYTES, _TILE, _pick_shapes, _round_up, exact_keys,
     scan_buckets, scan_buckets_plain, scan_operands, scan_variant,
 )
 
@@ -76,6 +76,29 @@ def test_8bit_table_identical_to_jax(rng, dtype, metric):
     (jd, ji), (td, ti) = _both(data, q, 5, metric, **SHAPES)
     np.testing.assert_array_equal(ti, ji)
     np.testing.assert_array_equal(td, jd)
+
+
+@pytest.mark.parametrize("metric", [MetricType.L2, MetricType.IP])
+@pytest.mark.parametrize("d", [37, 100, 128])
+@pytest.mark.parametrize("dtype", [np.uint8, np.int8])
+def test_8bit_table_with_float_queries_matches_jax(rng, dtype, d, metric):
+    # float32 queries of an 8-bit table: both packages keep the table
+    # unpromoted and cast the queries to bf16 ("wgmma_mixed" on the card
+    # where d % 4 == 0), then rerank with the float queries. The queries are
+    # table rows plus normal noise, so not integers: the keys' sums run in
+    # another order than JAX's, and phase B is exact where JAX's is
+    # approximate
+    lo, hi = (0, 256) if dtype == np.uint8 else (-128, 128)
+    data = rng.integers(lo, hi, (3000, d)).astype(dtype)
+    q = data[rng.choice(3000, 16, replace=False)] + 8 * rng.standard_normal((16, d))
+    q = q.astype(np.float32)
+    k = 10
+    (jd, ji), (td, ti) = _both(data, q, k, metric, **SHAPES)
+    _, truth = brute_force_knn(torch.from_numpy(data), torch.from_numpy(q), k, metric)
+    assert (ti == ji).mean() >= 0.99
+    shared = ti == ji
+    np.testing.assert_allclose(td[shared], jd[shared], rtol=1e-6)
+    assert _recall(ti, truth) >= _recall(ji, truth) - 0.005
 
 
 def test_no_rerank_mode_matches_jax(rng):
@@ -174,7 +197,7 @@ def test_plain_scan_is_the_strided_bucket_min(rng, metric):
     (torch.bfloat16, 40, 32, "wgmma"), (torch.bfloat16, 36, 16, "mma"),
     (torch.bfloat16, 392, 16, "wgmma_wide"), (torch.bfloat16, 132, 16, "mma"),
     (torch.bfloat16, 128, 512, "mma"), (torch.bfloat16, 128, 1, "wgmma"),
-    (torch.uint8, 128, 16, "mma"), (torch.int8, 128, 16, "mma"),
+    (torch.uint8, 128, 16, "wgmma_mixed"), (torch.int8, 128, 16, "wgmma_mixed"),
     (torch.bfloat16, 960, 16, "wgmma_wide"), (torch.bfloat16, 1024, 16, "wgmma_wide"),
     (torch.bfloat16, 1032, 16, "wgmma_deep"), (torch.bfloat16, 964, 16, "mma"),
     (torch.bfloat16, 104, 16, "wgmma"), (torch.bfloat16, 960, 512, "mma"),
@@ -184,9 +207,9 @@ def test_scan_variant_is_chosen_by_shape(dtype, d, L, want, s_blocks):
     # the main path (bf16, d=128) and the 1M scan take the TMA/wgmma
     # variant, gist's d=960 its clustered wide form, d past 1024 the form
     # that streams queries and rows, widths up to 32 the 64-byte form and
-    # 40 to 56 "wgmma" (its boxes read zeros past d); 8-bit rows against
-    # bf16 queries, widths TMA cannot stride and L past eight bits take the
-    # mma.sync one. T = 128 * s_blocks * L: S = T/L is whole
+    # 40 to 56 "wgmma" (its boxes read zeros past d), 8-bit rows against
+    # bf16 queries "wgmma_mixed"; widths TMA cannot stride and L past eight
+    # bits take the mma.sync one. T = 128 * s_blocks * L: S = T/L is whole
     # 128-bucket tiles
     t = 128 * s_blocks * L
     rows = torch.zeros((4 * t, d), dtype=dtype)
@@ -216,19 +239,53 @@ def test_scan_variant_needs_whole_bucket_tiles(t, L):
     (torch.int8, torch.int8, 252, 16, "wgmma_int8_packed"),
     (torch.uint8, torch.uint8, 37, 16, "mma"),    # rows of d % 4 != 0 bytes
     (torch.int8, torch.int8, 102, 16, "mma"),
-    (torch.uint8, torch.bfloat16, 100, 16, "mma"),  # bf16 queries
+    # bf16 queries (or 8-bit ones of the other type): the rows are widened
+    (torch.uint8, torch.bfloat16, 100, 16, "wgmma_mixed"),
+    (torch.int8, torch.bfloat16, 100, 256, "wgmma_mixed"),
+    (torch.uint8, torch.bfloat16, 256, 1, "wgmma_mixed"),
+    (torch.int8, torch.bfloat16, 4, 16, "wgmma_mixed"),
+    (torch.uint8, torch.bfloat16, 37, 16, "mma"),   # rows of d % 4 != 0 bytes
+    (torch.int8, torch.bfloat16, 102, 16, "mma"),
+    (torch.uint8, torch.bfloat16, 128, 512, "mma"),  # L past eight bits
+    (torch.int8, torch.bfloat16, 260, 16, "mma"),   # past d = 256
     (torch.int8, torch.int8, 100, 512, "mma"),
     (torch.uint8, torch.uint8, 264, 16, "mma"),   # past d = 256 the sums may leave 2^24
     (torch.int8, torch.int8, 260, 16, "mma"),
     (torch.uint8, torch.uint8, 128, 512, "mma"),  # L past eight bits
-    (torch.uint8, torch.int8, 128, 16, "mma"),    # queries of another 8-bit type
-    (torch.int8, torch.uint8, 128, 16, "mma"),
+    (torch.uint8, torch.int8, 128, 16, "wgmma_mixed"),  # queries of another 8-bit type
+    (torch.int8, torch.uint8, 128, 16, "wgmma_mixed"),
 ])
 def test_scan_variant_takes_integer_wgmma_for_8bit_queries(dtype, qdtype, d, L, want):
     t = 128 * L
     rows = torch.zeros((4 * t, d), dtype=dtype)
     q = torch.zeros((8, d), dtype=qdtype)
     assert scan_variant(q, rows, torch.zeros(rows.shape[0]), t, L) == want
+
+
+@pytest.mark.parametrize("rdtype,queries,want", [
+    (torch.uint8, torch.tensor([[3, 250]], dtype=torch.uint8), True),
+    (torch.int8, torch.tensor([[-128, 127]], dtype=torch.uint8), True),
+    (torch.uint8, torch.tensor([[-3.0, 255.0]], dtype=torch.bfloat16), True),
+    (torch.int8, torch.tensor([[0.5, 2.0]], dtype=torch.bfloat16), False),
+    (torch.bfloat16, torch.tensor([[1.0, 2.0]], dtype=torch.bfloat16), False),
+])
+def test_exact_keys_are_8bit_rows_against_integer_queries(rdtype, queries, want):
+    # the tier of correctness the card's K1 is held to: bit-equal where
+    # every partial sum is an integer, within a tolerance otherwise
+    assert exact_keys(queries, torch.zeros((4, 2), dtype=rdtype)) is want
+
+
+@pytest.mark.parametrize("d,value,want", [
+    (256, 256.0, True),     # 256 * 255 * 256 < 2^24
+    (256, 512.0, False),
+    (2, -32768.0, True),
+    (128, -1024.0, False),
+])
+def test_exact_keys_need_partial_sums_within_2_24(d, value, want):
+    # integer-valued queries are bit-exact only while every partial sum of
+    # d products with 8-bit rows stays an integer of at most 2^24
+    q = torch.full((3, d), value, dtype=torch.bfloat16)
+    assert exact_keys(q, torch.zeros((4, d), dtype=torch.uint8)) is want
 
 
 @pytest.mark.parametrize("d", [100, 132, 960, 64, 25, 50])
@@ -278,7 +335,8 @@ def test_fused_knn_operands_of_spacev_take_the_packed_variant(rng, dtype):
     assert rows is data and qk.dtype == dtype
     L, t, _, _ = _pick_shapes(10_000_000, 4096, 100, 1, _TILE, _QB, None, _SUMMARY_BYTES)
     assert scan_variant(qk, rows, torch.zeros(rows.shape[0]), t, L) == "wgmma_int8_packed"
-    assert scan_variant(qk.to(torch.bfloat16), rows, torch.zeros(rows.shape[0]), t, L) == "mma"
+    # float queries reach K1 as bf16: the rows are widened in registers
+    assert scan_variant(qk.to(torch.bfloat16), rows, torch.zeros(rows.shape[0]), t, L) == "wgmma_mixed"
 
 
 @pytest.mark.parametrize("metric", [MetricType.L2, MetricType.IP])
@@ -339,9 +397,9 @@ def test_plain_scan_with_8bit_queries_equals_bf16_queries(rng, dtype, metric):
     (torch.bfloat16, torch.bfloat16, 3072, 256, "wgmma_deep"),
     (torch.bfloat16, torch.bfloat16, 1540, 16, "mma"),  # rows TMA cannot stride
     (torch.bfloat16, torch.bfloat16, 1536, 512, "mma"),  # L past eight bits
-    (torch.uint8, torch.bfloat16, 1536, 16, "mma"),  # 8-bit rows with bf16 queries
-    (torch.uint8, torch.bfloat16, 128, 16, "mma"),
-    (torch.int8, torch.bfloat16, 100, 16, "mma"),
+    (torch.uint8, torch.bfloat16, 1536, 16, "mma"),  # 8-bit rows with bf16 queries past 256
+    (torch.uint8, torch.bfloat16, 128, 16, "wgmma_mixed"),
+    (torch.int8, torch.bfloat16, 100, 16, "wgmma_mixed"),
 ])
 def test_scan_variant_takes_wgmma_deep_past_1024(rdtype, qdtype, d, L, want):
     t = 128 * L

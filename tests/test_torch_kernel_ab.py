@@ -98,6 +98,37 @@ def test_main_needs_a_card(monkeypatch, tmp_path):
     assert kernel_ab.main(["--baseline", str(tmp_path)]) == 2
 
 
+def test_main_takes_several_baselines(monkeypatch, tmp_path):
+    # K1 copies after the first baseline are timed beside it
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert kernel_ab.main(["--cases", "k1", "--baseline", str(tmp_path), str(tmp_path / "b"),
+                           str(tmp_path / "c")]) == 2
+
+
+def test_launch_as_passes_the_c_entrys_parameters_in_order(monkeypatch):
+    # the one place that launches K1 as a chosen variant (the wrapper, the
+    # bench's other variants) passes what the entry's own source declares
+    from types import SimpleNamespace
+
+    from flatnav_tpu_torch.ops import fused_scan as fs
+
+    fn = _Fn()
+    monkeypatch.setattr(fs, "_lib", lambda: fn)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: SimpleNamespace(cuda_stream=7))
+    q = torch.zeros((5, 100), dtype=torch.bfloat16)
+    rows = torch.zeros((4096, 100), dtype=torch.int8)
+    pen = torch.zeros(4096)
+    out_min, out_id = torch.zeros((5, 256)), torch.zeros((5, 256), dtype=torch.int32)
+    assert fs.launch_as("wgmma_mixed", q, rows, pen, 4000, 2048, 16, out_min, out_id) == 0
+    src = (_build.CSRC / "fused_scan.cu").read_text()
+    names = kernel_ab.BaseEntry(_Lib(), src, "fused_scan_launch").names
+    want = dict(q=q.data_ptr(), q_type=fs._ROW_TYPES[torch.bfloat16], rows=rows.data_ptr(),
+                row_type=fs._ROW_TYPES[torch.int8], pen=pen.data_ptr(), qc=5, n=4096, d=100,
+                nlim=4000, t=2048, L=16, nb=256, variant=fs.VARIANTS["wgmma_mixed"],
+                out_min=out_min.data_ptr(), out_id=out_id.data_ptr(), stream=7)
+    assert fn.args == tuple(want[n] for n in names)
+
+
 def test_this_checkouts_k1_entry_takes_the_query_type():
     # the entry kernel_ab calls this checkout's baselines through, and the
     # names the north-star cases pass (the parent's entry lacks q_type)
@@ -106,12 +137,14 @@ def test_this_checkouts_k1_entry_takes_the_query_type():
     assert entry.names == ["q", "q_type", "rows", "row_type", "pen", "qc", "n", "d", "nlim",
                            "t", "L", "nb", "variant", "out_min", "out_id", "stream"]
     assert set(kernel_ab.K1_CASES) == {"1M", "path", "gist", "angular", "u8-10M", "u8-100M",
-                                       "u8-10M-bf16q", "spacev-10M", "spacev-100M", "glove-25",
-                                       "glove-50", "openai-1536", "openai-3072"}
+                                       "u8-10M-bf16q", "spacev-10M", "spacev-100M",
+                                       "spacev-10M-bf16q", "glove-25", "glove-50",
+                                       "openai-1536", "openai-3072"}
 
 
 @pytest.mark.parametrize("name", ["u8-10M", "u8-100M", "u8-10M-bf16q", "spacev-10M", "spacev-100M",
-                                  "glove-25", "glove-50", "openai-1536", "openai-3072"])
+                                  "spacev-10M-bf16q", "glove-25", "glove-50", "openai-1536",
+                                  "openai-3072"])
 def test_k1_cases_take_the_shapes_fused_knn_picks(name):
     # T, L and the query chunk of each case are fused_knn's for its table;
     # the bf16 tables at the width of their padded copy
@@ -132,6 +165,21 @@ def test_spacev_bound_is_at_the_tables_width():
     ms, by = scan_bound(qc, n, d, -(-n // t) * (t // L), row_bytes=1, q_bytes=1)
     assert by == "operations" and ms == pytest.approx(2 * qc * n * 100 / INT8_OP_PER_S * 1e3)
     assert ms == pytest.approx(4.1394, abs=1e-4)
+
+
+@pytest.mark.parametrize("name,want", [("spacev-10M-bf16q", 8.2831), ("u8-10M-bf16q", 10.6024)])
+def test_bf16_query_cases_are_bound_at_the_bf16_rate(name, want):
+    # 8-bit rows against bf16 queries ("wgmma_mixed") are bf16 products, at
+    # the table's own width: 2 * 4096 * 10^7 * d operations at 989 TFLOP/s
+    from flatnav_tpu_torch.bench.measure import scan_bound
+    from flatnav_tpu_torch.ops.fused_scan import scan_variant
+
+    qc, n, nlim, d, dtype, qdtype, t, L, _ = kernel_ab.K1_CASES[name]
+    ms, by = scan_bound(qc, n, d, -(-n // t) * (t // L), row_bytes=1, q_bytes=2)
+    assert by == "operations" and ms == pytest.approx(want, abs=1e-4)
+    rows = torch.zeros((2 * t, d), dtype=dtype)
+    q = torch.zeros((8, d), dtype=qdtype)
+    assert scan_variant(q, rows, torch.zeros(2 * t), t, L) == "wgmma_mixed"
 
 
 def test_scan_bound_counts_8bit_products_at_the_int8_rate():

@@ -6,11 +6,13 @@ with a card and no JAX it runs without the suite's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_gpu.py -q
 
-K2 and 8-bit K1 must be bit-equal to the plain version. bf16 K1 sums its
-products in another order than cuBLAS, so its minima agree within 1e-5 of
-the largest key magnitude and its ids on >= 99% of buckets. K1 has seven
-variants chosen by shape and type ("wgmma_narrow", "wgmma", "wgmma_wide",
-"wgmma_deep", "wgmma_int8", "wgmma_int8_packed" and "mma"); each case
+K2 must be bit-equal to the plain version, and so must K1 on 8-bit rows
+against 8-bit or integer-valued bf16 queries (every partial sum is an
+integer below 2^24). Other K1 cases sum their products in another order
+than cuBLAS, so their minima agree within 1e-5 of the largest key
+magnitude and their ids on >= 99% of buckets. K1 has eight variants chosen
+by shape and type ("wgmma_narrow", "wgmma", "wgmma_wide", "wgmma_deep",
+"wgmma_int8", "wgmma_int8_packed", "wgmma_mixed" and "mma"); each case
 states which one it must take. K2 is held at every width class, past
 d = 4096 too (its carry-stack path). K3 must be bit-equal on
 both routes ("block": bulk copies, also of rows off a 16-byte boundary;
@@ -30,7 +32,9 @@ import torch
 import flatnav_tpu_torch
 from flatnav_tpu_torch.ops.distances import MetricType, brute_force_knn, squared_norms
 from flatnav_tpu_torch.ops import fused_scan
-from flatnav_tpu_torch.ops.fused_scan import fused_knn, scan_buckets, scan_buckets_plain, scan_operands
+from flatnav_tpu_torch.ops.fused_scan import (
+    _ROW_TYPES, VARIANTS, exact_keys, fused_knn, scan_buckets, scan_buckets_plain, scan_operands,
+)
 from flatnav_tpu_torch.ops.gather_distance import gather_distances, gather_distances_plain
 from flatnav_tpu_torch.quantization import PQIndex, ProductQuantizer, pack_codes_4bit, pack_codes_lanes
 from flatnav_tpu_torch.quantization.pq import PQCodebook, pq_scan_knn
@@ -168,14 +172,21 @@ def test_index_at_d5000_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-6)
 
 
-def _scan_case(rng, cuda, n, d, qc, dtype, qdtype=torch.bfloat16):
+def _scan_case(rng, cuda, n, d, qc, dtype, qdtype=torch.bfloat16, queries="int"):
+    """Normal bf16 rows and queries, or uniform 8-bit rows with queries of
+    `qdtype` that are integers of the rows' range ("int") or normal bf16
+    values of about that spread ("normal")."""
     if dtype == torch.bfloat16:
         rows = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(cuda, dtype)
         q = torch.from_numpy(rng.standard_normal((qc, d)).astype(np.float32)).to(cuda, dtype)
     else:
         lo, hi = (0, 256) if dtype == torch.uint8 else (-128, 128)
         rows = torch.from_numpy(rng.integers(lo, hi, (n, d)).astype(np.int16)).to(cuda, dtype)
-        q = torch.from_numpy(rng.integers(lo, hi, (qc, d)).astype(np.int16)).to(cuda, qdtype)
+        if queries == "int":
+            q = torch.from_numpy(rng.integers(lo, hi, (qc, d)).astype(np.int16)).to(cuda, qdtype)
+        else:
+            q = (lo + hi) / 2 + 50 * rng.standard_normal((qc, d))
+            q = torch.from_numpy(q.astype(np.float32)).to(cuda, qdtype)
     return rows, q
 
 
@@ -184,7 +195,7 @@ def _check_scan(q, rows, pen, nlim, t, L, variant):
     kmin, kid = scan_buckets(q, rows, pen, nlim, t, L)
     assert (scan_buckets.launches, scan_buckets.variants[variant]) == (before[0] + 1, before[1] + 1)
     pmin, pid = scan_buckets_plain(q, rows, pen, nlim, t, L)
-    if rows.dtype != torch.bfloat16:
+    if exact_keys(q, rows):
         assert torch.equal(kmin, pmin) and torch.equal(kid, pid)
     else:
         fin = torch.isfinite(pmin)
@@ -201,7 +212,9 @@ def test_scan_buckets_matches_plain(cuda, rng, d, dtype, metric):
     n, nlim, qc, t, L = 10000, 9000, 100, 2048, 16  # n not a multiple of t
     rows, q = _scan_case(rng, cuda, n, d, qc, dtype)
     pen = squared_norms(rows) if metric == MetricType.L2 else torch.zeros(n, device=cuda)
-    variant = "wgmma" if dtype == torch.bfloat16 and d == 128 else "mma"
+    # 8-bit rows against bf16 queries: "wgmma_mixed" at d = 128, "mma" at a
+    # width of d % 4 != 0
+    variant = ("mma" if d == 37 else "wgmma" if dtype == torch.bfloat16 else "wgmma_mixed")
     _check_scan(q, rows, pen, nlim, t, L, variant)
 
 
@@ -327,9 +340,59 @@ def test_scan_buckets_packed_width_off_16_bytes_takes_mma(cuda, rng, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.int8])
-def test_scan_buckets_bf16_queries_of_8bit_rows_take_mma(cuda, rng, dtype):
+def test_scan_buckets_bf16_queries_of_8bit_rows_take_wgmma_mixed(cuda, rng, dtype):
     rows, q = _scan_case(rng, cuda, 5000, 128, 70, dtype)
-    _check_scan(q, rows, squared_norms(rows), 4900, 2048, 16, "mma")
+    _check_scan(q, rows, squared_norms(rows), 4900, 2048, 16, "wgmma_mixed")
+
+
+@pytest.mark.parametrize("metric", [MetricType.L2, MetricType.IP])
+@pytest.mark.parametrize("queries", ["int", "normal"])
+@pytest.mark.parametrize("t,L", [(2048, 16), (32768, 256)])
+@pytest.mark.parametrize("d", [16, 64, 100, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int8])
+def test_scan_buckets_wgmma_mixed(cuda, rng, dtype, d, t, L, queries, metric):
+    # 8-bit rows against bf16 queries: TMA rows (d % 16 == 0) and the packed
+    # copies (d = 100), one to four 64-column groups; n not a multiple of T,
+    # n_valid < N, 300 queries (not a multiple of the block's 128);
+    # bit-equal with integer-valued queries, within tolerance with normal
+    # ones; the variant count shows "wgmma_mixed" alone
+    n, nlim, qc = 40_037, 39_000, 300
+    rows, q = _scan_case(rng, cuda, n, d, qc, dtype, queries=queries)
+    pen = squared_norms(rows) if metric == MetricType.L2 else torch.zeros(n, device=cuda)
+    before = dict(scan_buckets.variants)
+    _check_scan(q, rows, pen, nlim, t, L, "wgmma_mixed")
+    after = dict(scan_buckets.variants)
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {"wgmma_mixed": 1}
+
+
+#: launches of the repeated 10M check
+MIXED_REPEATS = 50
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.uint8, 128), (torch.int8, 100)])
+def test_scan_buckets_wgmma_mixed_repeats_bit_equal_at_10m(cuda, dtype, d):
+    # BigANN's (TMA rows) and MS SPACEV's (packed copies) 10M rows against
+    # 4,096 integer-valued bf16 queries, T=32768, L=256: every ring buffer is
+    # refilled 256 times a block. MIXED_REPEATS launches in a row, each bit-equal
+    # to the plain version, so a fault between the consumers' reads of a
+    # buffer and its next fill shows as a run that differs
+    n, qc, t, L = 10_000_000, 4096, 32768, 256
+    g = torch.Generator(device=cuda).manual_seed(d)
+    lo, hi = (0, 256) if dtype == torch.uint8 else (-128, 128)
+    rows = torch.randint(lo, hi, (n, d), generator=g, device=cuda, dtype=torch.int16).to(dtype)
+    q = torch.randint(lo, hi, (qc, d), generator=g, device=cuda, dtype=torch.int16)
+    q = q.to(torch.bfloat16)
+    pen = squared_norms(rows)
+    assert exact_keys(q, rows)
+    pmin, pid = scan_buckets_plain(q, rows, pen, n, t, L)
+    before = scan_buckets.variants["wgmma_mixed"]
+    differ = 0
+    for _ in range(MIXED_REPEATS):
+        kmin, kid = scan_buckets(q, rows, pen, n, t, L)
+        differ += not (torch.equal(kmin, pmin) and torch.equal(kid, pid))
+        del kmin, kid
+    assert scan_buckets.variants["wgmma_mixed"] == before + MIXED_REPEATS
+    assert differ == 0, f"{differ} of {MIXED_REPEATS} launches differ from the plain version"
 
 
 @pytest.mark.parametrize("variant,dtype,qdtype,d,t,L", [
@@ -355,16 +418,24 @@ def test_scan_buckets_bf16_queries_of_8bit_rows_take_mma(cuda, rng, dtype):
     ("wgmma_deep", torch.bfloat16, torch.bfloat16, 1536, 2048 * 32, 512),
     ("wgmma_wide", torch.bfloat16, torch.bfloat16, 1536, 2048, 16),
     ("mma", torch.uint8, torch.uint8, 128, 2048, 16),
+    ("wgmma_mixed", torch.bfloat16, torch.bfloat16, 128, 2048, 16),
+    ("wgmma_mixed", torch.uint8, torch.uint8, 128, 2048, 16),
+    ("wgmma_mixed", torch.int8, torch.uint8, 128, 2048, 16),
+    ("wgmma_mixed", torch.uint8, torch.bfloat16, 37, 2048, 16),
+    ("wgmma_mixed", torch.int8, torch.bfloat16, 128, 2048 * 32, 512),
+    ("wgmma_mixed", torch.uint8, torch.bfloat16, 260, 2048, 16),
 ])
 def test_scan_launch_outside_a_rule_raises(cuda, rng, monkeypatch, variant, dtype, qdtype, d, t, L):
     # the C entry refuses the shape or type, and the wrapper raises; nothing
     # falls back to another variant
     rows, q = _scan_case(rng, cuda, 3000, d, 40, dtype, qdtype=qdtype)
     monkeypatch.setattr(fused_scan, "scan_variant", lambda *a: variant)
-    if variant == "mma":  # the wrapper widens 8-bit queries for "mma": call the entry
+    if qdtype != torch.bfloat16 and variant in ("mma", "wgmma_mixed"):
+        # the wrapper widens 8-bit queries for these two: call the entry
         rc = fused_scan._lib()(
-            q.data_ptr(), 1, rows.data_ptr(), 1, squared_norms(rows).data_ptr(), 40, 3000, d,
-            3000, t, L, -(-3000 // t) * (t // L), 0, 0, 0,
+            q.data_ptr(), _ROW_TYPES[qdtype], rows.data_ptr(), _ROW_TYPES[dtype],
+            squared_norms(rows).data_ptr(), 40, 3000, d, 3000, t, L,
+            -(-3000 // t) * (t // L), VARIANTS[variant], 0, 0,
             torch.cuda.current_stream().cuda_stream)
         assert rc == 1  # cudaErrorInvalidValue
         return
@@ -408,6 +479,28 @@ def test_fused_knn_on_card_matches_cpu(cuda, rng, case):
         same = gi.cpu() == ci
         assert float(same.float().mean()) >= 0.99
         torch.testing.assert_close(gd.cpu()[same], cd[same], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("metric", [MetricType.L2, MetricType.IP])
+@pytest.mark.parametrize("d", [100, 128])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int8])
+def test_fused_knn_float_queries_on_8bit_table_on_card_matches_cpu(cuda, rng, dtype, d, metric):
+    # float32 queries (table rows plus normal noise) of a BigANN- or
+    # SPACEV-class table: K1 takes "wgmma_mixed" alone on the card, and the
+    # ids and exact distances are the CPU's plain scan's
+    n, nq, k = 20_000, 96, 10
+    lo, hi = (0, 256) if dtype == torch.uint8 else (-128, 128)
+    data = torch.from_numpy(rng.integers(lo, hi, (n, d)).astype(np.int16)).to(dtype)
+    q = data[rng.choice(n, nq, replace=False)].to(torch.float32)
+    q = q + torch.from_numpy(8 * rng.standard_normal((nq, d)).astype(np.float32))
+    before = dict(scan_buckets.variants)
+    gd, gi = fused_knn(data.to(cuda), q.to(cuda), k, metric)
+    after = dict(scan_buckets.variants)
+    assert {v: after[v] - before[v] for v in after if after[v] != before[v]}.keys() == {"wgmma_mixed"}
+    cd, ci = fused_knn(data, q, k, metric)
+    same = gi.cpu() == ci
+    assert float(same.float().mean()) >= 0.99
+    torch.testing.assert_close(gd.cpu()[same], cd[same], rtol=1e-5, atol=1e-5)
 
 
 def test_lifecycle_on_card(cuda, tmp_path):
