@@ -22,6 +22,7 @@ from flatnav_tpu_torch.index.graph import GraphArrays, make_empty_graph, node_si
 from flatnav_tpu_torch.index.search import batched_search
 from flatnav_tpu_torch.ops.distances import MetricType, brute_force_knn, fast_knn
 from flatnav_tpu_torch.ops.fused_scan import fused_knn
+from flatnav_tpu_torch.utils.profiling import span, traced, wait
 
 _DISTANCE_TYPES = {"l2": MetricType.L2, "angular": MetricType.IP, "ip": MetricType.IP}
 
@@ -144,6 +145,7 @@ class Index:
         self._expand_factor = expand_factor
 
     # ------------------------------------------------------------------- add
+    @traced("index.add")
     def add(
         self,
         data: np.ndarray,
@@ -197,8 +199,19 @@ class Index:
         qdtype = (
             self._data_type.torch_dtype if self._data_type.is_integer else torch.float32
         )
-        return dt.host_tensor(queries).to(self._device, qdtype)
+        with span("index.queries_in"):
+            return dt.host_tensor(queries).to(self._device, qdtype)
 
+    @staticmethod
+    def _results_out(out_d, out_l) -> Tuple[np.ndarray, np.ndarray]:
+        """The batches' distances and labels, on the host."""
+        with wait("index.results_out"):
+            return (
+                torch.cat(out_d).cpu().numpy(),
+                torch.cat(out_l).to(torch.int32).cpu().numpy(),
+            )
+
+    @traced("index.search")
     def search(
         self,
         queries: np.ndarray,
@@ -229,10 +242,7 @@ class Index:
             out_l.append(res.labels)
             if self._collect_stats:
                 self._distance_computations += res.dist_computations
-        return (
-            torch.cat(out_d).cpu().numpy(),
-            torch.cat(out_l).to(torch.int32).cpu().numpy(),
-        )
+        return self._results_out(out_d, out_l)
 
     def search_single(
         self,
@@ -246,6 +256,7 @@ class Index:
         d, l = self.search(np.asarray(query)[None, :], K, ef_search, num_initializations)
         return d[0], l[0]
 
+    @traced("index.search_exact")
     def search_exact(
         self, queries: np.ndarray, K: int, rerank: int = 0,
         fused: bool = True, exact_rerank: bool = True,
@@ -290,10 +301,7 @@ class Index:
             out_l.append(torch.where(torch.isinf(dists), -1, g.labels[ids.long()]))
         if self._collect_stats:
             self._distance_computations += q.shape[0] * self.num_nodes
-        return (
-            torch.cat(out_d).cpu().numpy(),
-            torch.cat(out_l).to(torch.int32).cpu().numpy(),
-        )
+        return self._results_out(out_d, out_l)
 
     def get_query_distance_computations(self) -> int:
         """Read-and-reset distance-computation counter

@@ -11,6 +11,12 @@ two builds of the same data give bit-identical graphs.
 
 The port updates the graph's tensors in place (the JAX package returns new
 arrays), which keeps one copy of the table in device memory.
+
+Tracing (`utils.profiling`): one `build.wave` a wave, with the stages
+`build.commit_vectors`, `build.select` (the wave's beam search, whose
+`search.*` spans nest under it), `build.commit_links`, `build.kept_out` (a
+wait: the kept links come to the host) and `build.back_edges`; counters
+`build.nodes`, `build.hops`, `build.dist_computations`.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from flatnav_tpu_torch.ops.distances import (
     query_block_distances,
     smallest_k,
 )
+from flatnav_tpu_torch.utils.profiling import count, is_tracing, span, wait
 
 
 def _next_pow2(x: int) -> int:
@@ -516,45 +523,55 @@ def add_batch(
 
     bucket_used = 0
     while pos < n:
-        w = _wave_size(committed, n - pos, max_wave)
-        # one wave width for the whole build: the tail wave is padded
-        bucket = max(_next_pow2(w), _MIN_WAVE, bucket_used)
-        bucket_used = bucket
-        wave_data = data[pos : pos + w].to(dev)
-        wave_labels = labels[pos : pos + w].to(dev)
-        if w < bucket:  # pad lanes with the first row; masked out by n_valid
-            pad = bucket - w
-            wave_data = torch.cat([wave_data, wave_data[:1].expand(pad, -1)])
-            wave_labels = torch.cat(
-                [wave_labels, torch.zeros(pad, dtype=torch.int32, device=dev)]
-            )
-        new_vecs = wave_data.to(graph.vectors.dtype)
-        steps.commit_vectors(new_vecs, wave_labels)
-        sel = steps.select(
-            new_vecs, w, ef_construction=ef_construction, m_sel=m_sel, metric=metric,
-            num_initializations=num_initializations,
-            intra_candidates=intra_candidates, expand_factor=expand_factor,
-        )
-        if stats is not None:
-            stats["distance_computations"] = stats.get(
-                "distance_computations", 0
-            ) + int(sel.dist_computations)
-            stats["hops"] = stats.get("hops", 0) + int(sel.hops)
-        steps.commit_links(sel.kept_ids, w)
+        with span("build.wave"):
+            w = _wave_size(committed, n - pos, max_wave)
+            # one wave width for the whole build: the tail wave is padded
+            bucket = max(_next_pow2(w), _MIN_WAVE, bucket_used)
+            bucket_used = bucket
+            wave_data = data[pos : pos + w].to(dev)
+            wave_labels = labels[pos : pos + w].to(dev)
+            if w < bucket:  # pad lanes with the first row; masked out by n_valid
+                pad = bucket - w
+                wave_data = torch.cat([wave_data, wave_data[:1].expand(pad, -1)])
+                wave_labels = torch.cat(
+                    [wave_labels, torch.zeros(pad, dtype=torch.int32, device=dev)]
+                )
+            new_vecs = wave_data.to(graph.vectors.dtype)
+            with span("build.commit_vectors"):
+                steps.commit_vectors(new_vecs, wave_labels)
+            with span("build.select"):
+                sel = steps.select(
+                    new_vecs, w, ef_construction=ef_construction, m_sel=m_sel, metric=metric,
+                    num_initializations=num_initializations,
+                    intra_candidates=intra_candidates, expand_factor=expand_factor,
+                )
+            with span("build.commit_links"):
+                steps.commit_links(sel.kept_ids, w)
 
-        # back edges: host grouping, device compute
-        kept = sel.kept_ids[:w].cpu().numpy()  # [w, m_sel]
-        kept_d = sel.kept_dists[:w].cpu().numpy()  # dist(src, tgt)
-        src = committed + np.arange(w, dtype=np.int32)
-        tgt = kept.reshape(-1)
-        src_rep = np.repeat(src, m_sel)
-        dist_rep = kept_d.reshape(-1)
-        mask = tgt >= 0
-        if mask.any():
-            _commit_back_edges(
-                lambda t_, r_: steps.back_edges(t_, r_, metric),
-                tgt[mask], src_rep[mask], dist_rep[mask], device=dev,
-            )
+            # back edges: host grouping, device compute
+            with wait("build.kept_out"):
+                kept = sel.kept_ids[:w].cpu().numpy()  # [w, m_sel]
+                kept_d = sel.kept_dists[:w].cpu().numpy()  # dist(src, tgt)
+            count("build.nodes", w)
+            if stats is not None or is_tracing():
+                # the wave's counts, ready once the copy above has waited
+                n_dc, n_hops = int(sel.dist_computations), int(sel.hops)
+                count("build.hops", n_hops)
+                count("build.dist_computations", n_dc)
+                if stats is not None:
+                    stats["distance_computations"] = stats.get("distance_computations", 0) + n_dc
+                    stats["hops"] = stats.get("hops", 0) + n_hops
+            with span("build.back_edges"):
+                src = committed + np.arange(w, dtype=np.int32)
+                tgt = kept.reshape(-1)
+                src_rep = np.repeat(src, m_sel)
+                dist_rep = kept_d.reshape(-1)
+                mask = tgt >= 0
+                if mask.any():
+                    _commit_back_edges(
+                        lambda t_, r_: steps.back_edges(t_, r_, metric),
+                        tgt[mask], src_rep[mask], dist_rep[mask], device=dev,
+                    )
         committed += w
         pos += w
     return graph

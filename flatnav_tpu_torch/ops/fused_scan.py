@@ -46,6 +46,7 @@ from flatnav_tpu_torch.ops.distances import (
     smallest_k,
     squared_norms,
 )
+from flatnav_tpu_torch.utils.profiling import count, span, traced
 
 #: defaults: queries per chunk granule / rows per tile / bucket width.
 #: S = T/L must be a multiple of 128 (the binning matches the JAX package's
@@ -335,6 +336,7 @@ scan_buckets.launches = 0
 scan_buckets.variants = dict.fromkeys(VARIANTS, 0)
 
 
+@traced("scan")
 def fused_knn(
     dataset: torch.Tensor,
     queries: torch.Tensor,
@@ -365,48 +367,57 @@ def fused_knn(
     `exact_rerank=False` skips the rerank's row gather and ranks the
     shortlist by the kernel's keys, calibrated back to distances
     (key + ||q||^2 for L2, 1 + key/2 for IP): exact for bf16-rounded
-    inputs, and exact outright on the native 8-bit path."""
+    inputs, and exact outright on the native 8-bit path.
+
+    Traced (`utils.profiling`) as `scan`, with the stages `scan.prepare`
+    (the table's operands and norms, made every call), then per query
+    chunk `scan.k1`, `scan.k3` and `scan.rerank`; counter `scan.queries`."""
     n, d = dataset.shape
     b = queries.shape[0]
     r = max(rerank, k)
     n_limit = n if n_valid is None else int(n_valid)
-    ds_bf, q_bf = scan_operands(dataset, queries)
+    count("scan.queries", b)
+    with span("scan.prepare"):
+        ds_bf, q_bf = scan_operands(dataset, queries)
 
-    L, t, qb, qc = _pick_shapes(
-        n, b, d, ds_bf.element_size(), _tile_request(tile_size, bucket_l),
-        query_block, bucket_l,
-        _SUMMARY_BYTES if summary_bytes is None else summary_bytes,
-    )
-    # the norms come from the bf16-ROUNDED rows the kernel's dots see, so
-    # the key ranks distances to one consistent set of vectors
-    if metric == MetricType.L2:
-        pen = squared_norms(ds_bf[:, :d])
-    else:
-        pen = torch.zeros(n, dtype=torch.float32, device=dataset.device)
+        L, t, qb, qc = _pick_shapes(
+            n, b, d, ds_bf.element_size(), _tile_request(tile_size, bucket_l),
+            query_block, bucket_l,
+            _SUMMARY_BYTES if summary_bytes is None else summary_bytes,
+        )
+        # the norms come from the bf16-ROUNDED rows the kernel's dots see, so
+        # the key ranks distances to one consistent set of vectors
+        if metric == MetricType.L2:
+            pen = squared_norms(ds_bf[:, :d])
+        else:
+            pen = torch.zeros(n, dtype=torch.float32, device=dataset.device)
     nlim = min(n_limit, n)
 
     out_d, out_i = [], []
     for lo in range(0, b, qc):
         q_raw = queries[lo : lo + qc]
-        bmin, bids = scan_buckets(q_bf[lo : lo + qc], ds_bf, pen, nlim, t, L)
-        cand_key, cand_i = smallest_k(bmin, bids, min(r, bmin.shape[1]))
-        if not exact_rerank:
-            kk, ids = cand_key[:, :k], cand_i[:, :k]
-            if metric == MetricType.L2:
-                dist = kk + squared_norms(q_raw.to(torch.float32))[:, None]
-            else:
-                dist = 1.0 + 0.5 * kk
-            out_d.append(torch.where(torch.isinf(kk), float("inf"), dist))
-            out_i.append(ids)
-            continue
-        # invalid winners carry an inf key: keep them inf, or their clipped
-        # rows would re-score finitely and outrank real neighbors
-        rows = dataset[cand_i.clamp(max=n - 1).long()]
-        exact = query_block_distances(q_raw, rows, metric)
-        exact = torch.where(torch.isinf(cand_key), float("inf"), exact)
-        order = torch.argsort(exact, dim=1, stable=True)[:, :k]
-        out_d.append(exact.gather(1, order))
-        out_i.append(cand_i.gather(1, order))
+        with span("scan.k1"):
+            bmin, bids = scan_buckets(q_bf[lo : lo + qc], ds_bf, pen, nlim, t, L)
+        with span("scan.k3"):
+            cand_key, cand_i = smallest_k(bmin, bids, min(r, bmin.shape[1]))
+        with span("scan.rerank"):
+            if not exact_rerank:
+                kk, ids = cand_key[:, :k], cand_i[:, :k]
+                if metric == MetricType.L2:
+                    dist = kk + squared_norms(q_raw.to(torch.float32))[:, None]
+                else:
+                    dist = 1.0 + 0.5 * kk
+                out_d.append(torch.where(torch.isinf(kk), float("inf"), dist))
+                out_i.append(ids)
+                continue
+            # invalid winners carry an inf key: keep them inf, or their clipped
+            # rows would re-score finitely and outrank real neighbors
+            rows = dataset[cand_i.clamp(max=n - 1).long()]
+            exact = query_block_distances(q_raw, rows, metric)
+            exact = torch.where(torch.isinf(cand_key), float("inf"), exact)
+            order = torch.argsort(exact, dim=1, stable=True)[:, :k]
+            out_d.append(exact.gather(1, order))
+            out_i.append(cand_i.gather(1, order))
     return torch.cat(out_d), torch.cat(out_i)
 
 
