@@ -50,7 +50,17 @@ Phases, in order; any failure raises and the script exits nonzero:
      scan of search_exact for K1, its first phase-B selection (block route)
      and a build selection (warp route) for K3); K2 is timed at both, and
      K3's warp route at that build selection (its own entry in the kernels
-     line, "select_k warp", with the warp route's launches).
+     line, "select_k warp", with the warp route's launches). The hop's
+     kernels (csrc/beam_hop.cu) must have run three launches a hop in the
+     build and in both searches (BeamHop.launches zeroed before each, read
+     after). Then, on the main path's graph, each is held against its
+     PyTorch stage at every hop of a search at the graph cells' shapes
+     (1,000 queries at ef 512 / E 64 and ef 192 / E 16; ef 192 / E 64
+     compacted to 512; a build wave of 8,192 rows at ef 100 / E 16):
+     selected ids, expanded marks, the history, fresh flags, the beams (by
+     their bits), the counters and the end flag equal; and timed beside the
+     chain (bench/kernel_ab.py's hop cases), each stage beside its own
+     bound (the kernels line's "beam_hop" entry).
   4. the scan at SIFT1M scale: search_exact(rerank=32) and fused_knn over a
      1M x 128 float32 clustered table with B=4096, with recall and K1 time;
      K3 at phase B of that scan (keys [4096, 62592] -> 32, ids read),
@@ -160,8 +170,8 @@ The line before the last is one JSON object with each kernel's launches,
 error against its plain version, times and bound (a kernel with several
 variants or routes has an entry for each that the run times: K1's
 "wgmma_wide", "wgmma_deep", "wgmma_int8", "wgmma_int8_packed",
-"wgmma_narrow" and "wgmma_mixed", K2's "carry stack", K3's "warp"); the
-last line is
+"wgmma_narrow" and "wgmma_mixed", K2's "carry stack", K3's "warp"; the
+hop's kernels as "beam_hop"); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -511,6 +521,7 @@ def phase_main_path():
     from flatnav_tpu_torch.index import search as search_mod
     from flatnav_tpu_torch.ops import brute_force_knn
     from flatnav_tpu_torch.ops import fused_scan as fused_mod
+    from flatnav_tpu_torch.ops.beam_hop import BeamHop
     from flatnav_tpu_torch.ops.fused_scan import scan_buckets
     from flatnav_tpu_torch.ops.gather_distance import gather_distances
     from flatnav_tpu_torch.ops.select_k import select_k
@@ -556,12 +567,14 @@ def phase_main_path():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
+        BeamHop.launches = 0
         index = flatnav_tpu_torch.index.create(
             "l2", dim=d, dataset_size=n, max_edges_per_node=m, device="cuda"
         )
         index.add(data, ef_construction=efc)
         torch.cuda.synchronize()
         out["build_s"] = time.perf_counter() - t0
+        hop_launches = {"build": BeamHop.launches}  # the hop's kernels by step
         k3["build"] = select_k.launches - k3["brute_force_knn"]
         k3_routes["build"] = routes_since(routes_before)
         out["build_peak"] = device_memory_stats()["peak_bytes_in_use"]
@@ -576,7 +589,9 @@ def phase_main_path():
             out[name] = {"recall": recall(lab, gt), "qps": nq / sec, "s": sec}
             return dist, lab
 
+        BeamHop.launches = 0
         d1, l1 = run("graph", lambda: index.search(queries, K=k, ef_search=ef))
+        hop_launches["search"] = BeamHop.launches
         before, routes_before = select_k.launches, dict(select_k.routes)
         run("exact", lambda: index.search_exact(queries, K=k))
         run("fused", lambda: index.search_exact(queries, K=k, rerank=32))
@@ -587,9 +602,12 @@ def phase_main_path():
             path = os.path.join(tmp, "smoke_index.npz")
             index.save(path)
             index2 = flatnav_tpu_torch.index.load_index(path, device="cuda")
+        BeamHop.launches = 0
         d2, l2 = index2.search(queries, K=k, ef_search=ef)
         torch.cuda.synchronize()
+        hop_launches["reloaded search"] = BeamHop.launches
         launches = {"gather_distances": gather_distances.launches,
+                    "beam_hop": sum(hop_launches.values()), "beam_hop by step": hop_launches,
                     "scan_buckets": scan_buckets.launches,
                     "scan_buckets variants": dict(scan_buckets.variants),
                     "select_k": select_k.launches, "select_k by step": k3,
@@ -609,6 +627,8 @@ def phase_main_path():
         print(f"  {name}: recall@10 {r['recall']:.4f}  qps {r['qps']:.1f}  ({r['s']:.3f} s)")
     print(f"  launches on the main path: {launches}")
     check(launches["gather_distances"] > 0 and launches["scan_buckets"] > 0, "kernel launches")
+    check(all(v > 0 and v % 3 == 0 for v in hop_launches.values()),
+          f"the hop's three kernels ran every hop of the build and the searches: {hop_launches}")
     check(all(v > 0 for v in k3.values()),
           "K3 launched in brute_force_knn, the build and search_exact")
     check(launches["scan_buckets variants"]["wgmma"] == launches["scan_buckets"],
@@ -665,6 +685,39 @@ def k2_timing(call, what):
           f"gathered {gathered / 1e6:.1f} MB at {gathered / (ms * 1e-3) / 1e12:.2f} TB/s")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": None}
+
+
+def phase_beam_hop(path):
+    """The hop's kernels at the graph cells' shapes, on the main path's
+    graph (M=32): the sift1m.graph cell's hop (1,000 queries, ef 512, E 64),
+    the gist1m.graph cell's (ef 192, E 16), the headline's compacted hop
+    (ef 192, E 64, compact width 512) and a build wave's (8,192 of the
+    table's rows as queries, ef 100, E 16), each held against the chain at
+    every hop (bench.kernel_ab.hop_lockstep); then its hop cases time
+    the kernels beside the chain, each stage beside its own bound. -> {"hops
+    checked", "cases"}."""
+    import torch
+
+    from flatnav_tpu_torch.bench.kernel_ab import hop_cases, hop_lockstep
+    from flatnav_tpu_torch.index.search import table_blocks
+    from flatnav_tpu_torch.ops.distances import MetricType
+
+    g = path["index"].graph
+    q = torch.from_numpy(path["queries"][:1000]).cuda()
+    rows = torch.from_numpy(path["data"][:8192]).cuda()
+    checked = {}
+    for tag, queries, ef, e_f, cw in (("sift", q, 512, 64, 0), ("gist", q, 192, 16, 0),
+                                      ("compacted", q, 192, 64, 512), ("wave", rows, 100, 16, 0)):
+        score, entry = table_blocks(g.vectors, queries, MetricType.L2)
+        checked[tag], hop = hop_lockstep(g.links, score, entry, g.num_nodes, queries.shape[0],
+                                         ef=ef, e_f=e_f, cw=cw)
+        check(hop.workspace is None, f"hop {tag}: the rows fit shared memory")
+        del hop
+        print(f"beam_hop {tag}: B={queries.shape[0]} ef={ef} E={e_f} compact width {cw}: the "
+              f"kernels equal the chain at each of {checked[tag]} hops")
+    del q, rows
+    torch.cuda.empty_cache()
+    return {"hops checked": checked, "cases": hop_cases(5, ["sift", "gist", "wave"])}
 
 
 def phase_scan_1m():
@@ -1841,6 +1894,21 @@ def main() -> int:
         k3w.update(k3_times(intra, c2, lane_ids, "row", "a main-path build selection"))
         del build_sel, intra, lane_ids
         mark("3 main path")
+        beam = phase_beam_hop(path)
+        timed_at = beam["cases"][0]
+        kernels.append({
+            "name": "beam_hop", "route": "cuda", "variant": "select+membership+merge",
+            "source": "flatnav_tpu_torch/csrc/beam_hop.cu",
+            "replaces": "flatnav_tpu/index/search.py:514",
+            "launches": launches["beam_hop"], "launches_by_step": launches["beam_hop by step"],
+            "max_abs_err": 0.0, "hops_checked": beam["hops checked"],
+            "ms": timed_at["kernels_ms"], "plain_ms": timed_at["chain_ms"],
+            "bound_ms": timed_at["bound_ms"], "bound_by": timed_at["bound_by"],
+            "library_ms": None,
+            "timed_at": {x: timed_at[x] for x in ("case", "b", "ef", "e", "m", "hist")},
+            "cases": beam["cases"],
+        })
+        mark("3b beam hop")
         k2["launches_reordered_search"] = phase_reorder(path)
         mark("5 reorder")
         phase_pq_graph(path)

@@ -2,6 +2,7 @@
 
     python -m flatnav_tpu_torch.bench.kernel_ab --baseline DIR [DIR ...] [--reps 10] [--cases k2,k1]
     python -m flatnav_tpu_torch.bench.kernel_ab --cases k3 [--baseline DIR] [--k3 phaseB-1M,...]
+    python -m flatnav_tpu_torch.bench.kernel_ab --cases hop [--hop sift,gist,wave]
 
 DIR holds the other version's `gather_distance.cu`, `fused_scan.cu` and/or
 `select_k.cu`,
@@ -68,6 +69,19 @@ rounds, `run_rounds`, and for a seeded case the tile's k and then the merge
 over the concatenated 2k, two launches); a seeded case also times this
 checkout's kernel in that two-launch form ("K3 two launches"); then the
 plain version once, and `measure.select_bound`. The last line is every K3 case as one JSON object.
+
+Hop (`--cases hop`, `HOP_CASES`: the sift1m.graph and gist1m.graph cells'
+searches at B=1000, ef 512 / E 64 and ef 192 / E 16, M=32, and a build wave
+at B=8192, ef 100, E 16): the hop's bookkeeping by `ops.beam_hop`'s three
+kernels beside the PyTorch chain they replace, on one synthetic mid-search
+hop (`_hop_state`), held bit-equal first; no baseline. The new distances are
+drawn like the beam's, so about half the fresh candidates beat the beam's
+last entry and the merge sorts many more than in a real search's later
+hops: its reading is an upper end. `measure.hop_bound` bounds the whole
+hop, and each stage is read against its own bound
+(`measure.hop_stage_bounds`). The last line is every hop case as one JSON
+object. `hop_lockstep` holds the kernels to the chain after every stage of
+every hop of a whole search (the `gpu` tests and chip_smoke.py call it).
 Needs a CUDA card; exits 2 without one.
 """
 
@@ -86,7 +100,17 @@ import numpy as np
 import torch
 
 from flatnav_tpu_torch import _build
-from flatnav_tpu_torch.bench.measure import card, gather_bound, scan_bound, select_bound, timed
+from flatnav_tpu_torch.bench.measure import (
+    card,
+    gather_bound,
+    hop_bound,
+    hop_stage_bounds,
+    scan_bound,
+    select_bound,
+    timed,
+)
+from flatnav_tpu_torch.index import search as search_mod
+from flatnav_tpu_torch.ops import beam_hop
 from flatnav_tpu_torch.ops.distances import squared_norms
 from flatnav_tpu_torch.bench._northstar import int8_operands
 from flatnav_tpu_torch.ops.fused_scan import (
@@ -535,13 +559,182 @@ def k3_cases(reps: int, names: list[str], base: BaseEntry | None = None) -> list
     return out
 
 
+#: hop cases: label -> (B, ef, E, M): the graph cells' searches and a build wave
+HOP_CASES = {"sift": (1000, 512, 64, 32), "gist": (1000, 192, 16, 32), "wave": (8192, 100, 16, 32)}
+
+
+def _hop_state(b, ef, e_f, m, g):
+    """A mid-search hop's inputs over 1M ids: hop `it`, a third of the cap;
+    an ordered beam, about half of it expanded; it*E ids in the history;
+    candidates of which a third repeat the beam, the history or the row."""
+    n, em = 1_000_000, e_f * m
+    hop_cap = search_mod._hop_cap(ef, e_f)
+    it = hop_cap // 3
+
+    def ids(shape):
+        return torch.randint(0, n, shape, device="cuda", generator=g, dtype=torch.int32)
+
+    beam_d = torch.rand((b, ef), device="cuda", generator=g).sort(dim=1).values
+    beam_i = ids((b, ef))
+    beam_e = torch.rand((b, ef), device="cuda", generator=g) < 0.5
+    visited = torch.full((b, hop_cap * e_f), -1, dtype=torch.int32, device="cuda")
+    visited[:, : it * e_f] = ids((b, it * e_f))
+    nbrs = ids((b, em))
+    seen = torch.cat([beam_i, visited[:, : it * e_f], nbrs], dim=1)
+    pick = torch.randint(0, seen.shape[1], (b, em), device="cuda", generator=g)
+    again = torch.rand((b, em), device="cuda", generator=g) < 1 / 3
+    nbrs = torch.where(again, seen.gather(1, pick), nbrs)
+    scores = torch.rand((b, em), device="cuda", generator=g)
+    return it, (beam_d, beam_i, beam_e, visited), nbrs, scores
+
+
+def entry_state(entry, n: int, b: int, ef: int, hist_width: int, ni: int = 8):
+    """The beam and history `beam_search_core` starts from: `entry` scores
+    `ni` candidates at a stride of the n ids. -> (beam_d, beam_i, beam_e,
+    history)."""
+    dev = torch.device("cuda")
+    step = max(n // ni, 1)
+    cand = torch.arange(ni, dtype=torch.int32, device=dev) * step
+    ok = cand < n
+    cand = torch.where(ok, cand, 0)
+    d0 = torch.where(ok[None, :], entry(cand), float("inf"))
+    best = d0.argmin(dim=1)
+    beam_d = torch.full((b, ef), float("inf"), device=dev)
+    beam_d[:, 0] = d0.gather(1, best[:, None])[:, 0]
+    beam_i = torch.zeros((b, ef), dtype=torch.int32, device=dev)
+    beam_i[:, 0] = cand[best]
+    beam_e = torch.ones((b, ef), dtype=torch.bool, device=dev)
+    beam_e[:, 0] = False
+    visited = torch.full((b, hist_width), -1, dtype=torch.int32, device=dev)
+    return beam_d, beam_i, beam_e, visited
+
+
+def hop_lockstep(links, score, entry, n: int, b: int, *, ef: int, e_f: int, cw: int = 0,
+                 hop_cap: int = 0):
+    """The hop's kernels (`ops.beam_hop.BeamHop`) and its PyTorch chain
+    (index/search.py's `_select`, `_membership`, `_merge`) side by side on
+    the same card inputs, every hop of a search from its entry state
+    (`hop_cap` 0: the search's default): the selected ids and flags, the
+    expanded marks, the history (the kernels keep it sorted), the
+    candidates and fresh flags, the merged beam (distances by their bits),
+    both counters and the end flag must be equal after each stage; a
+    difference raises. -> (hops run, the kernels' BeamHop)."""
+    m = links.shape[1]
+    hop_cap = hop_cap or search_mod._hop_cap(ef, e_f)
+    d_c, i_c, e_c, vis = entry_state(entry, n, b, ef, hop_cap * e_f)
+    d_k, i_k, e_k, hist = (t.clone() for t in (d_c, i_c, e_c, vis))
+    dcomp_c, hops_c = torch.zeros((), dtype=torch.int64, device="cuda"), 0
+    dcomp_k, hops_k = (torch.zeros((), dtype=torch.int64, device="cuda") for _ in range(2))
+    hop = beam_hop.BeamHop(d_k, i_k, e_k, hist, dcomp_k, hops_k, e_f=e_f, m=m, compact_width=cw)
+    pos = torch.arange(ef, device="cuda")
+
+    def same(ok, what):
+        if not ok:
+            raise RuntimeError(f"hop {it}: the kernels' {what} differs from the chain's")
+
+    for it in range(hop_cap):
+        e_c, cur_c, sv_c = search_mod._select(i_c, e_c, e_f, pos)
+        cur_k, sv_k = hop.select()
+        same(torch.equal(cur_k, cur_c) and torch.equal(sv_k, sv_c), "selection")
+        same(torch.equal(e_k, e_c), "expanded marks after select")
+        nbrs = links[cur_c.reshape(-1).long()].reshape(b, e_f * m)
+        nb_c, fr_c = search_mod._membership(d_c, i_c, vis, it, cur_c, nbrs, sv_c, m, cw)
+        nb_k, fr_k = hop.membership(nbrs)
+        same(torch.equal(hist, vis.sort(dim=1).values), "history")
+        same(torch.equal(nb_k, nb_c) and torch.equal(fr_k, fr_c), "membership")
+        s = score(nb_c)
+        dcomp_c += fr_c.sum()
+        hops_c += int(sv_c.sum())
+        d_c, i_c, e_c = search_mod._merge((d_c, i_c, e_c), nb_c, fr_c,
+                                          torch.where(fr_c, s, float("inf")), ef)
+        hop.merge(s, nb_k, it + 1)
+        same(torch.equal(d_k.view(torch.int32), d_c.view(torch.int32))
+             and torch.equal(i_k, i_c), "merged beam")
+        same(torch.equal(e_k, e_c), "expanded marks after merge")
+        same(int(dcomp_k) == int(dcomp_c) and int(hops_k) == hops_c, "counters")
+        left = bool((~e_c).any())
+        same((int(hop.flag) == it + 1) == left, "end flag")
+        if not left:
+            break
+    return it + 1, hop
+
+
+def hop_cases(reps: int, names: list[str]) -> list[dict]:
+    """The hop's bookkeeping by its kernels (`ops.beam_hop`, three
+    launches) and by the PyTorch chain they replace (index/search.py's
+    `_select`, `_membership`, `_merge`, the counters and the end test's
+    reduction), on one mid-search hop's inputs (`_hop_state`); the kernels
+    held bit-equal to the chain first. The select and merge kernels update
+    their state in place, so each of their calls first restores it (copies
+    timed alone as "restore" and taken off their readings)."""
+    out = []
+    for name in names:
+        b, ef, e_f, m = HOP_CASES[name]
+        g = torch.Generator(device="cuda").manual_seed(0)
+        it, (beam_d, beam_i, beam_e, visited), nbrs, scores = _hop_state(b, ef, e_f, m, g)
+        pos = torch.arange(ef, device="cuda")
+
+        def chain():
+            e, cur, sv = search_mod._select(beam_i, beam_e, e_f, pos)
+            nb, fr = search_mod._membership(beam_d, beam_i, visited, it, cur, nbrs, sv, m, 0)
+            nd = torch.where(fr, scores, float("inf"))
+            counts = (fr.sum(), sv.sum())
+            beam = search_mod._merge((beam_d, beam_i, e), nb, fr, nd, ef)
+            return beam, counts, (~beam[2]).any()
+
+        start = (beam_d, beam_i, beam_e, visited.sort(dim=1).values)
+        work = [t.clone() for t in start]
+        counts = [torch.zeros((), dtype=torch.int64, device="cuda") for _ in range(2)]
+        hop = beam_hop.BeamHop(*work, *counts, e_f=e_f, m=m)
+
+        def restore():
+            for w, s in zip(work, start):
+                w.copy_(s)
+
+        hop.select()
+        hop.membership(nbrs)
+        hop.merge(scores, nbrs, 1)
+        (want_d, want_i, want_e), _, _ = chain()
+        if not (torch.equal(work[0].view(torch.int32), want_d.view(torch.int32))
+                and torch.equal(work[1], want_i) and torch.equal(work[2], want_e)):
+            raise RuntimeError(f"hop {name}: the kernels differ from the chain")
+        fns = {
+            "chain": chain,
+            "kernels": lambda: (restore(), hop.select(), hop.membership(nbrs),
+                                hop.merge(scores, nbrs, 1)),
+            "restore": restore,
+            "select": lambda: (restore(), hop.select()),
+            "membership": lambda: hop.membership(nbrs),
+            "merge": lambda: (restore(), hop.merge(scores, nbrs, 1)),
+        }
+        times = alternate(fns, reps)
+        base = sum(times["restore"]) / len(times["restore"])
+        for key in ("kernels", "select", "merge"):
+            times[key] = [t - base for t in times[key]]
+        bound, by = hop_bound(b, ef, e_f, m, visited.shape[1])
+        stage_bounds = hop_stage_bounds(b, ef, e_f, m, visited.shape[1])
+        show(f"hop {name}: B={b}, ef={ef}, E={e_f}, M={m}, history {visited.shape[1]}, "
+             f"hop {it} (bit-equal; kernels, select and merge net of restore)",
+             {k: times[k] for k in ("chain", "kernels")}, bound, by)
+        print(f"  restore (a copy of the state, taken off): {base:.4f} ms")
+        for stage, (stage_bound, stage_by) in stage_bounds.items():
+            show(f"  {stage} against its own bound", {stage: times[stage]}, stage_bound, stage_by)
+        mean = {k: sum(t) / len(t) for k, t in times.items()}
+        out.append({"case": name, "b": b, "ef": ef, "e": e_f, "m": m,
+                    "hist": visited.shape[1], "bound_ms": bound, "bound_by": by,
+                    **{f"{k}_bound_ms": v for k, (v, _) in stage_bounds.items()},
+                    **{f"{k}_ms": v for k, v in mean.items()}})
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", type=Path, nargs="+",
                     help="the other version's csrc (needed by k1 and k2; k3 optional), "
                          "then K1 copies timed beside it")
     ap.add_argument("--reps", type=int, default=10)
-    ap.add_argument("--cases", default="k2,k1", help="comma-separated: k2, k1, k3")
+    ap.add_argument("--cases", default="k2,k1", help="comma-separated: k2, k1, k3, hop")
     ap.add_argument("--k1", default=",".join(K1_CASES),
                     help=f"comma-separated K1 cases: {', '.join(K1_CASES)}")
     ap.add_argument("--k2", default=",".join(K2_CASES),
@@ -551,15 +744,17 @@ def main(argv=None) -> int:
                          f"operands: {', '.join(VARIANTS)}")
     ap.add_argument("--k3", default=",".join([*K3_CASES, *K3_SEEDED]),
                     help=f"comma-separated K3 cases: {', '.join([*K3_CASES, *K3_SEEDED])}")
+    ap.add_argument("--hop", default=",".join(HOP_CASES),
+                    help=f"comma-separated hop cases: {', '.join(HOP_CASES)}")
     args = ap.parse_args(argv)
     cases = args.cases.split(",")
-    ab = [c for c in cases if c != "k3"]
+    ab = [c for c in cases if c not in ("k3", "hop")]
     if ab and args.baseline is None:
         ap.error(f"--cases {','.join(ab)} needs --baseline")
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
-    _build.build([_SOURCES[c][0] for c in cases])
+    _build.build([_SOURCES[c][0] if c in _SOURCES else "beam_hop" for c in cases])
     with_base = ab + (["k3"] if "k3" in cases and args.baseline is not None else [])
     base = build_baseline(args.baseline[0], with_base) if with_base else {}
     copies = [build_baseline(d, ["k1"])["k1"] for d in args.baseline[1:]] if "k1" in cases else []
@@ -576,6 +771,8 @@ def main(argv=None) -> int:
         print(json.dumps({"card": card(), "baseline": None if "k3" not in base else
                           str(args.baseline[0]),
                           "k3": k3_cases(args.reps, args.k3.split(","), base.get("k3"))}))
+    if "hop" in cases:
+        print(json.dumps({"card": card(), "hop": hop_cases(args.reps, args.hop.split(","))}))
     return 0
 
 

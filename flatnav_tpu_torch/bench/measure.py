@@ -91,6 +91,35 @@ def select_bound(b: int, w: int, k: int, ids: str = "implicit", prior: bool = Fa
     return _bound(nbytes, 0, BF16_FLOP_PER_S)
 
 
+def hop_stage_bounds(b: int, ef: int, e_f: int, m: int, hist_width: int,
+                     compact_width: int = 0) -> dict[str, tuple[float, str]]:
+    """-> {"select", "membership", "merge": (ms, "bytes")}: each stage of a
+    hop's bookkeeping (`csrc/beam_hop.cu`) for b queries, the bytes its
+    function needs read once and written once. Select reads the expanded
+    marks and the E selected ids, and writes the marks it sets, the ids,
+    their valid flags and the E ids it adds to the history (the kernel also
+    reads and rewrites the rest of the sorted history: its design's traffic,
+    not counted); membership reads the beam's distances and ids, the
+    history, the E*M candidates and the valid flags, and writes the fresh
+    flags (and the compacted candidates); merge reads the beam (9 B an
+    entry), the C scored candidates' distances, ids and fresh flags, and
+    writes the beam. No arithmetic the peak rates count."""
+    em = e_f * m
+    c = compact_width if 0 < compact_width < em else em
+    select = ef + e_f * 4 + e_f + e_f * 4 + e_f + e_f * 4
+    member = ef * 8 + hist_width * 4 + em * 4 + e_f + c + (c * 4 if c < em else 0)
+    merge = ef * 9 + c * 9 + ef * 9
+    return {name: _bound(b * n, 0, BF16_FLOP_PER_S)
+            for name, n in (("select", select), ("membership", member), ("merge", merge))}
+
+
+def hop_bound(b: int, ef: int, e_f: int, m: int, hist_width: int, compact_width: int = 0):
+    """-> (ms, "bytes") of a whole hop's bookkeeping: the sum of
+    `hop_stage_bounds`."""
+    stages = hop_stage_bounds(b, ef, e_f, m, hist_width, compact_width)
+    return sum(ms for ms, _ in stages.values()), "bytes"
+
+
 class CallRecorder:
     """Stands in for a kernel wrapper where a module calls it and keeps the
     arguments of the `nth` call that `keep(*args)` accepts since the last

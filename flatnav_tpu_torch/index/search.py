@@ -32,13 +32,21 @@ sharded table's gather otherwise).
 The hop's scorer is `gather_distances` (kernel K2) for float tables; integer
 tables keep the exact int32 path.
 
+Two routes run the rest of the hop, with the same results bit for bit. On a
+CUDA card (`ops.beam_hop.engages`), at every shape, select, membership and
+merge are one hand-written kernel each (`csrc/beam_hop.cu`), the history is
+kept sorted, and the end test reads one flag the merge writes. On the CPU
+the hop is the PyTorch chain `_select`, `_membership`, `_merge`, which is
+the kernels' plain version.
+
 Tracing (`utils.profiling`): `search` around a batched search, under it
 `search.guard` (the memory guard, which asks the card for its memory),
 `search.entry` and one `search.hop` a lockstep hop with its stages
 (`.select`, `.links`, `.membership`, `.score`, `.merge`) and the end test
 (`search.hop.end`, a wait: the host reads whether any beam holds an
 unexpanded entry), and `search.counts` (the wait for the batch's counters);
-counters `search.queries`, `search.hops`, `search.dist_computations`.
+counters `search.queries`, `search.hops`, `search.dist_computations`, and
+`search.hops_fused` (one a hop that the kernels ran).
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ from flatnav_tpu_torch.ops.distances import (
     pairwise_distances,
     query_block_distances,
 )
+from flatnav_tpu_torch.ops import beam_hop
 from flatnav_tpu_torch.ops.gather_distance import gather_distances
 from flatnav_tpu_torch.utils.profiling import count, span, traced, wait
 
@@ -192,6 +201,65 @@ def _unexpanded_left(beam_e: torch.Tensor) -> bool:
         return bool((~beam_e).any())
 
 
+def _flag_at(flag: torch.Tensor, stamp: int) -> bool:
+    """The end test of a hop the kernels ran: whether its merge stamped the
+    flag, i.e. some beam still holds an unexpanded entry (one scalar copy)."""
+    with wait("search.hop.end"):
+        return int(flag) == stamp
+
+
+def _select(beam_i, beam_e, e_f: int, pos):
+    """The hop's select: the first `e_f` unexpanded positions of each beam
+    (`pos`: arange(ef)), marked expanded. -> (beam_e, cur_ids [B, e_f], 0
+    where not valid, sel_valid [B, e_f])."""
+    ef = beam_e.shape[1]
+    unexp = ~beam_e
+    if e_f == 1:
+        sel = unexp.to(torch.int8).argmax(dim=1, keepdim=True)
+        sel_valid = unexp.any(dim=1, keepdim=True)
+    else:
+        cand_pos = torch.where(unexp, pos, ef)
+        sel = torch.topk(cand_pos, e_f, dim=1, largest=False).values
+        sel_valid = sel < ef
+    sel = sel.clamp(max=ef - 1)
+    cur_ids = torch.where(sel_valid, beam_i.gather(1, sel), 0)
+    hit = ((pos[None, :, None] == sel[:, None, :]) & sel_valid[:, None, :]).any(2)
+    return beam_e | hit, cur_ids, sel_valid
+
+
+def _membership(beam_d, beam_i, visited, it: int, cur_ids, nbrs, sel_valid, m: int,
+                compact_width: int):
+    """The hop's membership test: records this hop's expansions in slots
+    it*E.. of the history `visited` (in place), then marks the fresh
+    candidates: selected source, not in the beam (finite entries), not in
+    the history, first occurrence in the row. -> (nbrs, fresh), the first
+    `compact_width` fresh-first where that is below E*M."""
+    e_f = sel_valid.shape[1]
+    valid_src = sel_valid.repeat_interleave(m, dim=1)
+    visited[:, it * e_f : (it + 1) * e_f] = torch.where(sel_valid, cur_ids, -1)
+    beam_tab = torch.where(torch.isfinite(beam_d), beam_i, _INT_SENTINEL)
+    in_beam = _sorted_member(beam_tab.sort(dim=1).values, nbrs)
+    in_hist = _sorted_member(visited.sort(dim=1).values, nbrs)
+    fresh = ~(in_beam | in_hist) & valid_src & _first_occurrence(nbrs)
+    if 0 < compact_width < nbrs.shape[1]:
+        # fresh-first: a stable sort on "not fresh" keeps both groups
+        # in their order, so the kernel below scores CC rows, not E*M
+        order = torch.argsort((~fresh).to(torch.int8), dim=1, stable=True)
+        order = order[:, :compact_width]
+        nbrs = nbrs.gather(1, order)
+        fresh = fresh.gather(1, order)
+    return nbrs, fresh
+
+
+def _merge(beam, nbrs, fresh, nd, ef: int):
+    """The hop's merge: sort the new entries (`nd`, +inf where not fresh),
+    keep at most ef of them, merge them into the beam. -> the new beam
+    (dists, ids, expanded)."""
+    order = torch.argsort(nd, dim=1, stable=True)[:, :ef]
+    new = (nd.gather(1, order), nbrs.gather(1, order), (~fresh).gather(1, order))
+    return _merge_sorted(beam, new, ef)
+
+
 def beam_search_core(
     links: torch.Tensor,
     num_nodes: int,
@@ -231,8 +299,12 @@ def beam_search_core(
     em = e_f * m
     hop_cap = max_hops if max_hops else _hop_cap(ef, e_f)
     if links_block is None:
+        # one buffer for every hop's neighbour lists: a hop's reads of them
+        # are queued before the next hop's gather
+        nbr_rows = torch.empty((b * e_f, m), dtype=links.dtype, device=dev)
+
         def links_block(ids):
-            return links[ids.reshape(-1).long()].reshape(b, em)
+            return torch.index_select(links, 0, ids.view(-1), out=nbr_rows).view(b, em)
 
     ni = num_initializations
     step = max(num_nodes // ni, 1)
@@ -248,61 +320,55 @@ def beam_search_core(
         beam_i[:, 0] = cand[best]
         beam_e = torch.ones((b, ef), dtype=torch.bool, device=dev)
         beam_e[:, 0] = False
-        # expanded-id history, -1 padded, appended hop by hop
+        # expanded-id history, -1 padded: the chain appends to it hop by hop,
+        # the kernels keep it sorted
         visited = torch.full((b, hop_cap * e_f), -1, dtype=torch.int32, device=dev)
 
         # the reference counts num_initializations up front (Index.h:857-859)
         # plus 1 for the entry node (Index.h:619)
         dcomp = torch.tensor(b * (ni + 1), dtype=torch.int64, device=dev)
         hops = torch.zeros((), dtype=torch.int64, device=dev)
-        pos = torch.arange(ef, device=dev)
+        if beam_hop.engages(dev):
+            hop = beam_hop.BeamHop(beam_d, beam_i, beam_e, visited, dcomp, hops, e_f=e_f, m=m,
+                                   compact_width=compact_width)
+        else:
+            hop, pos = None, torch.arange(ef, device=dev)
         it = 0
         more = it < hop_cap and _unexpanded_left(beam_e)
 
     while more:
         with span("search.hop"):
             with span("search.hop.select"):
-                unexp = ~beam_e
-                if e_f == 1:
-                    sel = unexp.to(torch.int8).argmax(dim=1, keepdim=True)
-                    sel_valid = unexp.any(dim=1, keepdim=True)
+                if hop:
+                    cur_ids, sel_valid = hop.select()
                 else:
-                    cand_pos = torch.where(unexp, pos, ef)
-                    sel = torch.topk(cand_pos, e_f, dim=1, largest=False).values
-                    sel_valid = sel < ef
-                sel = sel.clamp(max=ef - 1)
-                cur_ids = torch.where(sel_valid, beam_i.gather(1, sel), 0)
-                hit = ((pos[None, :, None] == sel[:, None, :]) & sel_valid[:, None, :]).any(2)
-                beam_e = beam_e | hit
-
+                    beam_e, cur_ids, sel_valid = _select(beam_i, beam_e, e_f, pos)
             with span("search.hop.links"):
                 nbrs = links_block(cur_ids)  # [B, E*M]
             with span("search.hop.membership"):
-                valid_src = sel_valid.repeat_interleave(m, dim=1)
-                visited[:, it * e_f : (it + 1) * e_f] = torch.where(sel_valid, cur_ids, -1)
-                beam_tab = torch.where(torch.isfinite(beam_d), beam_i, _INT_SENTINEL)
-                in_beam = _sorted_member(beam_tab.sort(dim=1).values, nbrs)
-                in_hist = _sorted_member(visited.sort(dim=1).values, nbrs)
-                fresh = ~(in_beam | in_hist) & valid_src & _first_occurrence(nbrs)
-                if 0 < compact_width < em:
-                    # fresh-first: a stable sort on "not fresh" keeps both groups
-                    # in their order, so the kernel below scores CC rows, not E*M
-                    order = torch.argsort((~fresh).to(torch.int8), dim=1, stable=True)
-                    order = order[:, :compact_width]
-                    nbrs = nbrs.gather(1, order)
-                    fresh = fresh.gather(1, order)
+                if hop:
+                    nbrs, fresh = hop.membership(nbrs)
+                else:
+                    nbrs, fresh = _membership(
+                        beam_d, beam_i, visited, it, cur_ids, nbrs, sel_valid, m,
+                        compact_width)
             with span("search.hop.score"):
-                nd = torch.where(fresh, score_block(nbrs), float("inf"))
+                nd = score_block(nbrs)
+                if not hop:
+                    nd = torch.where(fresh, nd, float("inf"))
             with span("search.hop.merge"):
-                dcomp = dcomp + fresh.sum()
-                hops = hops + sel_valid.sum()
-
-                # sort the new entries, keep at most ef of them, merge into the beam
-                order = torch.argsort(nd, dim=1, stable=True)[:, :ef]
-                new = (nd.gather(1, order), nbrs.gather(1, order), (~fresh).gather(1, order))
-                beam_d, beam_i, beam_e = _merge_sorted((beam_d, beam_i, beam_e), new, ef)
+                if hop:
+                    hop.merge(nd, nbrs, it + 1)
+                else:
+                    dcomp = dcomp + fresh.sum()
+                    hops = hops + sel_valid.sum()
+                    beam_d, beam_i, beam_e = _merge((beam_d, beam_i, beam_e), nbrs, fresh, nd, ef)
             it += 1
-            more = it < hop_cap and _unexpanded_left(beam_e)
+            if hop:
+                count("search.hops_fused", 1)
+                more = it < hop_cap and _flag_at(hop.flag, it)
+            else:
+                more = it < hop_cap and _unexpanded_left(beam_e)
     return BeamResults(beam_d, beam_i, dcomp, hops)
 
 

@@ -345,3 +345,36 @@ def test_openai_bound_counts_operations():
     ms, by = scan_bound(qc, n, d, -(-n // t) * (t // L))
     assert by == "operations" and ms == pytest.approx(2 * qc * n * d / BF16_FLOP_PER_S * 1e3)
     assert ms == pytest.approx(12.7229, abs=1e-4)
+
+
+def test_hop_bound_counts_each_stage_once():
+    # sift1m.graph's hop: select 1,408 B a query, membership 19,008, merge 27,648
+    from flatnav_tpu_torch.bench.measure import HBM_BYTES_PER_S, hop_bound
+
+    ms, by = hop_bound(1000, 512, 64, 32, 1152)
+    assert by == "bytes"
+    assert ms == pytest.approx(1000 * 48_064 / HBM_BYTES_PER_S * 1e3)
+    # compacted to 512: 512 ids and fresh flags written, 512 candidates merged
+    compacted, _ = hop_bound(1000, 512, 64, 32, 1152, compact_width=512)
+    want = 48_064 + 512 * 4 - 1536 - 1536 * 9
+    assert compacted == pytest.approx(1000 * want / HBM_BYTES_PER_S * 1e3)
+
+
+@pytest.mark.parametrize("shape,per_query", [
+    ((512, 64, 32, 1152), (1_408, 19_008, 27_648)),  # sift1m.graph
+    ((192, 16, 32, 512), (416, 6_160, 8_064)),  # gist1m.graph
+])
+def test_hop_stage_bounds_give_each_stage_its_own(shape, per_query):
+    from flatnav_tpu_torch.bench.measure import HBM_BYTES_PER_S, hop_bound, hop_stage_bounds
+
+    stages = hop_stage_bounds(1000, *shape)
+    assert list(stages) == ["select", "membership", "merge"]
+    for (ms, by), n in zip(stages.values(), per_query):
+        assert by == "bytes" and ms == pytest.approx(1000 * n / HBM_BYTES_PER_S * 1e3)
+    assert hop_bound(1000, *shape)[0] == pytest.approx(sum(ms for ms, _ in stages.values()))
+
+
+def test_hop_cases_need_a_card(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("the no-card exit")
+    assert kernel_ab.main(["--cases", "hop"]) == 2

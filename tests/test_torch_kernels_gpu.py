@@ -19,6 +19,13 @@ both routes ("block": bulk copies, also of rows off a 16-byte boundary;
 "warp": a warp a row), seeded with a prior or not, and the scans must
 return what the two-launch merge they replaced returns.
 
+The hop's kernels (csrc/beam_hop.cu) must give what their stages of the
+PyTorch chain give, bit for bit, after every stage of every hop: on the
+corner cases of tests/beam_hop_cases.py, at the graph cells' shapes and at
+shapes whose rows outgrow shared memory (the global-memory workspace); and
+a search or a build must give the same bits whether the hops ran the
+kernels or the chain.
+
 The product-quantized index and the graph reordering hold no kernel of their
 own; their cases run the same call on the card and with device="cpu" at a
 small size and hold the two together, at the tolerances of the CPU tests
@@ -30,6 +37,7 @@ import pytest
 import torch
 
 import flatnav_tpu_torch
+from flatnav_tpu_torch.bench.kernel_ab import hop_lockstep
 from flatnav_tpu_torch.ops.distances import MetricType, brute_force_knn, squared_norms
 from flatnav_tpu_torch.ops import fused_scan
 from flatnav_tpu_torch.ops.fused_scan import (
@@ -1098,3 +1106,170 @@ def test_scans_equal_the_two_launch_merge_on_card(cuda, rng, dtype, monkeypatch)
         old = call()
         assert select_k.launches - before == 2 * launches[name], name  # one launch a tile now
         assert _k3_equal(new[name], old), name
+
+
+# ---------------------------------------------------------------------------
+# the hop's bookkeeping (csrc/beam_hop.cu) against its PyTorch chain
+# ---------------------------------------------------------------------------
+
+
+def _same_bits(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("cw", [0, 5], ids=["uncompacted", "compacted"])
+@pytest.mark.parametrize("e_f", [1, 4])
+@pytest.mark.parametrize("kind", ["ties", "dups", "out_of_range", "signed_zero"])
+def test_beam_hop_kernels_equal_their_stages_every_hop(cuda, kind, e_f, cw):
+    import beam_hop_cases as cases
+
+    links, table = (torch.from_numpy(a).to(cuda) for a in cases.make(kind))
+    score, entry = cases.torch_blocks(table)
+    hops, _ = hop_lockstep(links, score, entry, cases.N, cases.B, ef=8, e_f=e_f, cw=cw)
+    assert hops > 1
+
+
+@pytest.mark.parametrize("ef,c", [(16, 40), (16, 8), (512, 2048), (192, 512)])
+def test_beam_hop_merge_orders_as_torch_sort(cuda, ef, c):
+    # beams out of order, NaN in the beam and among the new distances,
+    # -0.0 beside +0.0, +inf, rows with nothing fresh (in order and not)
+    from flatnav_tpu_torch.index import search as S
+    from flatnav_tpu_torch.ops.beam_hop import BeamHop
+
+    g = torch.Generator(device=cuda).manual_seed(ef + c)
+    vals = torch.tensor([-0.0, 0.0, 0.5, 1.0, float("inf"), float("nan")], device=cuda)
+    b = 64
+
+    def draw(shape):
+        return vals[torch.randint(0, len(vals), shape, device=cuda, generator=g)]
+
+    beam_d = draw((b, ef))
+    beam_d[: b // 4] = beam_d[: b // 4].sort(dim=1).values  # in order, NaN last
+    beam_d[b // 8 : b // 4] = torch.where(beam_d[b // 8 : b // 4].isnan(), float("inf"),
+                                          beam_d[b // 8 : b // 4])
+    beam_i = torch.randint(0, 1000, (b, ef), device=cuda, generator=g, dtype=torch.int32)
+    beam_e = torch.rand((b, ef), device=cuda, generator=g) < 0.5
+    s = draw((b, c))
+    nbrs = torch.randint(-1, 1000, (b, c), device=cuda, generator=g, dtype=torch.int32)
+    fresh = torch.rand((b, c), device=cuda, generator=g) < 0.3
+    fresh[: b // 2 : 2] = False  # nothing fresh
+    want = S._merge((beam_d, beam_i, beam_e), nbrs, fresh, torch.where(fresh, s, float("inf")), ef)
+    dcomp = torch.zeros((), dtype=torch.int64, device=cuda)
+    hist = torch.full((b, c), -1, dtype=torch.int32, device=cuda)
+    # a hop of c candidates: one expansion of c links
+    hop = BeamHop(beam_d, beam_i, beam_e, hist, dcomp, dcomp.clone(), e_f=1, m=c)
+    hop.fresh.copy_(fresh)
+    hop.merge(s, nbrs, 7)
+    assert _same_bits(beam_d, want[0]) and torch.equal(beam_i, want[1])
+    assert torch.equal(beam_e, want[2])
+    assert int(dcomp) == int(fresh.sum())
+    assert int(hop.flag) == (7 if bool((~want[2]).any()) else 0)
+
+
+def _clustered_graph(cuda, n, d, m, b, seed=3):
+    """A random m-link graph over a clustered table (the search's data, not
+    its graph: every hop still revisits, dedups and merges)."""
+    from flatnav_tpu_torch.bench.synth import clustered
+
+    data, q = clustered(n, d, b, seed=seed, centers_per_64k=26)
+    vectors = torch.from_numpy(data).to(cuda)
+    queries = torch.from_numpy(q).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    links = torch.randint(0, n, (n, m), device=cuda, generator=g, dtype=torch.int32)
+    return vectors, queries, links
+
+
+@pytest.mark.parametrize("d,ef,e_f,cw", [(128, 512, 64, 0), (960, 192, 16, 0), (128, 100, 16, 300),
+                                         (32, 1024, 128, 0)],
+                         ids=["sift_cell", "gist_cell", "wave_compacted", "plan_edge"])
+def test_beam_hop_kernels_equal_their_stages_at_the_cells_shapes(cuda, d, ef, e_f, cw):
+    from flatnav_tpu_torch.index.search import table_blocks
+
+    vectors, queries, links = _clustered_graph(cuda, 100_000, d, 32, 1000)
+    score, entry = table_blocks(vectors, queries, MetricType.L2)
+    hops, hop = hop_lockstep(links, score, entry, 100_000, 1000, ef=ef, e_f=e_f, cw=cw)
+    assert hops > 4 and hop.workspace is None  # shared memory holds the cells' rows
+
+
+def _chain_only(monkeypatch):
+    from flatnav_tpu_torch.ops import beam_hop
+
+    monkeypatch.setattr(beam_hop, "engages", lambda *args: False)
+
+
+@pytest.mark.parametrize("d,ef,e_f", [(128, 512, 64), (960, 192, 16)], ids=["sift", "gist"])
+def test_batched_search_routes_agree(cuda, monkeypatch, d, ef, e_f):
+    from flatnav_tpu_torch.bench.synth import clustered
+    from flatnav_tpu_torch.index.search import batched_search
+    from flatnav_tpu_torch.utils import profiling
+
+    data, q = clustered(100_000, d, 1000, seed=5, centers_per_64k=26)
+    ix = flatnav_tpu_torch.index.create("l2", d, 100_000, 32)
+    ix.add(data, ef_construction=100)
+    g = ix.graph
+    queries = torch.from_numpy(q).to(cuda)
+    kw = dict(k=10, ef=ef, expand_factor=e_f)
+    profiling.snapshot(reset=True)
+    with profiling.tracing():
+        fused = batched_search(g.vectors, g.links, g.labels, g.num_nodes, queries, **kw)
+    snap = profiling.snapshot(reset=True)
+    hop_calls = sum(r["calls"] for p, r in snap["spans"].items() if p.endswith("search.hop"))
+    assert hop_calls > 4 and snap["counters"]["search.hops_fused"] == hop_calls
+    _chain_only(monkeypatch)
+    with profiling.tracing():
+        chain = batched_search(g.vectors, g.links, g.labels, g.num_nodes, queries, **kw)
+    assert "search.hops_fused" not in profiling.snapshot(reset=True)["counters"]
+    assert _same_bits(fused.dists, chain.dists) and torch.equal(fused.labels, chain.labels)
+    assert (fused.dist_computations, fused.hops) == (chain.dist_computations, chain.hops)
+
+
+def test_index_add_builds_the_same_links_by_both_routes(cuda, monkeypatch):
+    from flatnav_tpu_torch.bench.synth import clustered
+    from flatnav_tpu_torch.ops.beam_hop import BeamHop
+
+    data, _ = clustered(20_000, 64, 8, seed=7, centers_per_64k=26)
+    launches = BeamHop.launches
+    fused = flatnav_tpu_torch.index.create("l2", 64, 20_000, 16)
+    fused.add(data, ef_construction=100)
+    assert BeamHop.launches > launches  # the wave search ran the kernels
+    _chain_only(monkeypatch)
+    chain = flatnav_tpu_torch.index.create("l2", 64, 20_000, 16)
+    chain.add(data, ef_construction=100)
+    assert torch.equal(fused.graph.links, chain.graph.links)
+
+
+@pytest.mark.parametrize("opts,spills", [
+    (dict(ef=1100), False),
+    (dict(max_hops=400), False),
+    (dict(max_hops=1200), True),  # membership's sets in the workspace
+    (dict(ef=12_000, expand_factor=16), True),  # membership's and the merge's
+], ids=["ef", "history", "history_in_workspace", "ef_in_workspace"])
+def test_shapes_past_the_plan_run_the_kernels_equal_to_the_chain(cuda, monkeypatch, opts, spills):
+    # wide beams and long histories: every stage at every hop, and the whole
+    # search, equal to the chain; a row too large for shared memory runs on
+    # the global-memory workspace
+    from flatnav_tpu_torch.index.search import batched_search, table_blocks
+    from flatnav_tpu_torch.ops.beam_hop import BeamHop
+    from flatnav_tpu_torch.utils import profiling
+
+    n, b = 20_000, 64
+    vectors, queries, links = _clustered_graph(cuda, n, 32, 16, b)
+    labels = torch.arange(n, dtype=torch.int32, device=cuda)
+    kw = {"k": 10, "ef": 64, "expand_factor": 32, **opts}
+    score, entry = table_blocks(vectors, queries, MetricType.L2)
+    hops, hop = hop_lockstep(links, score, entry, n, b, ef=kw["ef"], e_f=kw["expand_factor"],
+                          hop_cap=kw.get("max_hops", 0))
+    assert hops > 1 and (hop.workspace is not None) is spills
+    del hop
+    launches = BeamHop.launches
+    profiling.snapshot(reset=True)
+    with profiling.tracing():
+        fused = batched_search(vectors, links, labels, n, queries, **kw)
+    snap = profiling.snapshot(reset=True)
+    hop_calls = sum(r["calls"] for p, r in snap["spans"].items() if p.endswith("search.hop"))
+    assert snap["counters"]["search.hops_fused"] == hop_calls > 1
+    assert BeamHop.launches - launches == 3 * hop_calls
+    _chain_only(monkeypatch)
+    chain = batched_search(vectors, links, labels, n, queries, **kw)
+    assert _same_bits(fused.dists, chain.dists) and torch.equal(fused.labels, chain.labels)
+    assert (fused.dist_computations, fused.hops) == (chain.dist_computations, chain.hops)
