@@ -25,14 +25,15 @@ import torch
 from annbench import reference
 
 
-def judge(data, queries, answers, k, metric, limits, missing=0, tf32=False):
+def judge(data, queries, answers, k, metric, limits, missing=0):
     """-> (correct, {name: [value, limit, "<=" or ">="]}, recall).
 
-    data [n, d] and queries [nq, d] are the benchmark's tensors on the device
-    the reference runs on; answers a list of (lo, dists [b, k], ids [b, k]):
-    the answers to queries lo .. lo + b - 1."""
+    data [n, d] and queries [nq, d] are the benchmark's tensors, in the
+    configuration's type, on the device the reference runs on; `metric` the
+    configuration's, as `registry.form` reads it; answers a list of (lo,
+    dists [b, k], ids [b, k]): the answers to queries lo .. lo + b - 1."""
     dev = data.device
-    truth_d, truth_i = reference.exact_knn(data, queries, k, metric, tf32=tf32)
+    truth_d, truth_i = reference.exact_knn(data, queries, k, metric)
     n = data.shape[0]
     qidx = torch.from_numpy(np.concatenate(
         [np.arange(lo, lo + len(i)) for lo, _, i in answers])).to(dev) if answers else \

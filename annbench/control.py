@@ -1,12 +1,12 @@
 """The control of the comparison that decides `correct`: the plain reference
 put in the program's place and computed one precision lower (TF32 products
-for a float32 configuration), judged by `check.judge` exactly as a run's
-answers are. It has to come out not correct.
+for a float32 configuration, int4 operands for an 8-bit one), judged by
+`check.judge` exactly as a run's answers are. It has to come out not correct.
 
     python3 annbench/control.py --workload <cell> --seeds 1 2 3
 
 For each seed it draws the cell's data on the card as a run does, answers every test
-query once in the mix's requests with `reference.exact_knn(tf32=True)`
+query once in the mix's requests with `reference.exact_knn(lower=True)`
 (answers are deterministic, so one pass reads what more would), and prints
 one JSON line with the compared numbers. The benchmark's runs do not run it.
 """
@@ -27,22 +27,23 @@ def control_answers(data, queries, k, metric, request_queries):
 
     answers = []
     for lo in range(0, queries.shape[0], request_queries):
-        d, i = reference.exact_knn(data, queries[lo : lo + request_queries], k, metric, tf32=True)
+        d, i = reference.exact_knn(data, queries[lo : lo + request_queries], k, metric, lower=True)
         answers.append((lo, d.cpu().numpy(), i.cpu().numpy()))
     return answers
 
 
 def run(reg, workload: str, seed: int) -> dict:
     from annbench import check, synth
-    from annbench.registry import cell_params
+    from annbench.registry import cell_params, form
 
     cell = reg.cell(workload)
     cfg, traffic = reg.config(cell["config"]), reg.traffic(cell["traffic"])
     params = cell_params(cfg, traffic)
     k = params["args"]["K"]
+    metric = form(cfg)[0]
     data, queries = synth.generate(cfg, seed, "cuda")
-    answers = control_answers(data, queries, k, cfg["metric"], traffic["request_queries"])
-    correct, numbers, _ = check.judge(data, queries, answers, k, cfg["metric"], params["limits"])
+    answers = control_answers(data, queries, k, metric, traffic["request_queries"])
+    correct, numbers, _ = check.judge(data, queries, answers, k, metric, params["limits"])
     return {"workload": workload, "seed": seed, "correct": correct,
             "check": {n: v for n, (v, _, _) in numbers.items()}}
 

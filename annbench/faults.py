@@ -30,7 +30,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 WINDOW_S = 10.0
 #: rows of the scan's dropped tile
 TILE = 4096
-#: what the dropped tile's rows hold: far from every query
+#: what the dropped tile's rows hold, far from every query: float32 rows
+#: under L2 sit at FAR in every column; rows scored by 1 - <q, x> are zero,
+#: which scores 1 against every unit query; 8-bit rows sit at the type's
+#: least value, below the 0.5th percentile of every column's data
 FAR = 1e4
 
 
@@ -55,6 +58,17 @@ def half_back_edges(patch):
     patch(build.LocalWave, "back_edges", back_edges)
 
 
+def _far(index) -> float:
+    """The value of a row out of every query's reach, in the index's form."""
+    import torch
+    from flatnav_tpu_torch.ops.distances import MetricType
+
+    if index.metric is MetricType.IP:
+        return 0.0
+    dtype = index.graph.vectors.dtype
+    return FAR if dtype.is_floating_point else torch.iinfo(dtype).min
+
+
 def tile_dropped(patch, tile: int = TILE):
     """`tile` rows in the middle of the table are moved out of reach once
     they are allocated, so no search returns them."""
@@ -65,7 +79,7 @@ def tile_dropped(patch, tile: int = TILE):
     def allocate_nodes(self, data, labels=None):
         out = real(self, data, labels)
         lo = self.num_nodes // 2 // tile * tile
-        self.graph.vectors[lo : lo + tile] = FAR
+        self.graph.vectors[lo : lo + tile] = _far(self)
         return out
 
     patch(api.Index, "allocate_nodes", allocate_nodes)

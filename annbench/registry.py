@@ -7,7 +7,10 @@ a metric is added as new files and entries without editing any file here.
   belongs to the deployment (a graph mix's operating point) sits in the
   configuration's file, in the group that the mix names (`cell_params`);
 - a metric: its reader, `metrics/<name>.py` beside this module, a module
-  with `read(ctx) -> float | None` and, where it reads spans, `SPANS`.
+  with `read(ctx) -> float | None` and, where it reads spans, `SPANS`;
+- a configuration's data form: `metric` and `dtype` in its file (`form`),
+  which the generator, the program's index (`index_args`) and the
+  reference all take from here.
 """
 
 from __future__ import annotations
@@ -68,3 +71,38 @@ def cell_params(cfg: dict, traffic: dict) -> dict:
     own = cfg[traffic["config_group"]] if "config_group" in traffic else {}
     return {key: {**traffic.get(key, {}), **own.get(key, {})}
             for key in ("args", "setters", "limits")}
+
+
+#: the data forms the harness takes: `metric` (l2: squared L2; angular: unit
+#: rows scored by 1 - <q, x>) and `dtype`, the type of the rows as served
+METRICS = ("l2", "angular")
+DTYPES = ("float32", "uint8", "int8")
+
+
+def form(cfg: dict) -> tuple[str, str]:
+    """The configuration's (metric, dtype), read from its file. The one place
+    that reads them: the generator (`synth.generate`), the program's index
+    (`index_args`) and the comparison (`check.judge`, through the caller) all
+    take the form from here. Raises, naming the key, on a value the harness
+    does not take."""
+    name = cfg.get("name")
+    metric, dtype = cfg.get("metric"), cfg.get("dtype")
+    if metric not in METRICS:
+        raise ValueError(f"configuration {name!r}: key 'metric' is {metric!r}, not one of {METRICS}")
+    if dtype not in DTYPES:
+        raise ValueError(f"configuration {name!r}: key 'dtype' is {dtype!r}, not one of {DTYPES}")
+    if metric == "angular" and dtype != "float32":
+        raise ValueError(f"configuration {name!r}: key 'dtype' is {dtype!r}; angular rows are "
+                         "unit float32 rows, which have no 8-bit form here")
+    return metric, dtype
+
+
+def index_args(cfg: dict) -> dict:
+    """The keywords of the program's `flatnav_tpu_torch.index.create` for the
+    configuration: its metric, sizes and `index_data_type` from its `dtype`."""
+    from flatnav_tpu_torch.data_type import DataType
+
+    metric, dtype = form(cfg)
+    return {"distance_type": metric, "dim": cfg["dim"], "dataset_size": cfg["n"],
+            "max_edges_per_node": cfg["max_edges_per_node"],
+            "index_data_type": DataType(dtype)}

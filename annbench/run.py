@@ -5,10 +5,13 @@
 The cell names a configuration (its file of sizes, `configs/`) and a traffic
 mix (`traffic/<name>.json`) in `BENCHMARK.json`. A run:
 
-1. draws the configuration's rows and test queries on the card from `--seed`
-   (`synth.py`), copies them to the host and frees the card;
-2. sets up the program (`flatnav_tpu_torch`) as the mix says: `Index.add`
-   (the graph build) or `Index.allocate_nodes` (rows only), then the mix's
+1. draws the configuration's rows and test queries on the card from `--seed`,
+   in its form (`registry.form`: its metric and the type of its rows;
+   `synth.py`), copies them to the host and frees the card;
+2. sets up the program (`flatnav_tpu_torch`), its index created with the
+   configuration's metric and type (`registry.index_args`), as the mix
+   says: `Index.add` (the graph build) or `Index.allocate_nodes` (rows
+   only), then the mix's
    setters, then `warmup_passes` passes of its requests, so that every
    kernel is built and every shape seen before the clock starts;
 3. measures a closed loop with one client for `--seconds`: requests of
@@ -91,7 +94,7 @@ def run_cell(reg, name: str, seed: int, seconds: float, trace: bool, device: str
 
     from annbench import check, spans as spans_mod, synth
     from annbench import trace as trace_mod
-    from annbench.registry import cell_params
+    from annbench.registry import cell_params, form, index_args
 
     cell = reg.cell(name)
     cfg, traffic = reg.config(cell["config"]), reg.traffic(cell["traffic"])
@@ -115,9 +118,7 @@ def run_cell(reg, name: str, seed: int, seconds: float, trace: bool, device: str
     marks.append(("data", time.time() - t0))
     import flatnav_tpu_torch
 
-    index = flatnav_tpu_torch.index.create(
-        cfg["metric"], dim=cfg["dim"], dataset_size=cfg["n"],
-        max_edges_per_node=cfg["max_edges_per_node"], device=device)
+    index = flatnav_tpu_torch.index.create(**index_args(cfg), device=device)
     tb = time.perf_counter()
     if traffic["setup"] == "add":
         index.add(data_np, ef_construction=cfg["ef_construction"])
@@ -241,7 +242,7 @@ def run_cell(reg, name: str, seed: int, seconds: float, trace: bool, device: str
     data = torch.from_numpy(data_np).to(dev)
     queries = torch.from_numpy(q_np).to(dev)
     correct, numbers, ctx.recall = check.judge(
-        data, queries, list(zip(los, dists, idss)), k, cfg["metric"], params["limits"], missing=missing)
+        data, queries, list(zip(los, dists, idss)), k, form(cfg)[0], params["limits"], missing=missing)
     del data, queries
 
     metrics = {}

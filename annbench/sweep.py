@@ -44,21 +44,19 @@ def main(argv=None) -> int:
         print("sweep: no CUDA device", file=sys.stderr)
         return 2
     from annbench import reference, synth
-    from annbench.registry import Registry, cell_params
+    from annbench.registry import Registry, cell_params, form, index_args
     import flatnav_tpu_torch
 
     reg = Registry()
     cfg, traffic = reg.config(args.config), reg.traffic(TRAFFIC)
     k = cell_params(cfg, traffic)["args"]["K"]
     data, queries = synth.generate(cfg, SEED, "cuda")
-    truth = reference.exact_knn(data, queries, k, cfg["metric"])[1].cpu()
+    truth = reference.exact_knn(data, queries, k, form(cfg)[0])[1].cpu()
     data_np, q_np = data.cpu().numpy(), queries.cpu().numpy()
     del data, queries
     torch.cuda.empty_cache()
 
-    index = flatnav_tpu_torch.index.create(
-        cfg["metric"], dim=cfg["dim"], dataset_size=cfg["n"],
-        max_edges_per_node=cfg["max_edges_per_node"])
+    index = flatnav_tpu_torch.index.create(**index_args(cfg))
     t0 = time.perf_counter()
     index.add(data_np, ef_construction=cfg["ef_construction"])
     torch.cuda.synchronize()

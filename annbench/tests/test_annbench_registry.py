@@ -10,7 +10,7 @@ import re
 
 import pytest
 
-from annbench.registry import Registry, cell_params
+from annbench.registry import Registry, cell_params, form
 from conftest import REPO
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -22,7 +22,8 @@ REG = Registry(REPO)
 @pytest.mark.parametrize("name", [c["name"] for c in BENCH["configs"]])
 def test_config_loads_by_name(name):
     cfg = REG.config(name)
-    assert {"n", "dim", "num_queries", "metric", "generator", "assumed"} <= set(cfg)
+    assert {"n", "dim", "num_queries", "metric", "dtype", "generator", "assumed"} <= set(cfg)
+    form(cfg)  # a form the harness takes
     assert cfg["reduced"] == [] and "data" in cfg["assumed"]
     assert "ann-benchmarks" in cfg["source"] and "Makefile" in cfg["build_source"]
 

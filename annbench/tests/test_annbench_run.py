@@ -28,13 +28,17 @@ def _run(reg, cell, trace=False, seed=SEED):
 def test_sound_run_is_correct_with_its_metrics(toy_reg, cell):
     r = _run(toy_reg, cell)
     assert r["correct"] and r["failed"] == 0 and r["attempted"] > 0
-    assert {"qps", "p95_ms", "recall_at_10", "setup_s"} <= set(r["metrics"])
-    assert "peak_gib" not in r["metrics"]  # no card, no device memory reading
+    # every end-to-end metric of the cell but peak_gib: no card, no device
+    # memory reading (the toy graph cell, like sift1m.graph, has its p95 per
+    # layer, request.p95_ms)
+    want = {m["name"] for m in toy_reg.metrics(cell, "end_to_end")} - {"peak_gib"}
+    assert {"qps", "recall_at_10", "setup_s"} <= want and set(r["metrics"]) == want
     assert list(r)[-1] == "check" and r["check"]["dist_gap"]["value"] < 1e-5
 
 
 @pytest.mark.parametrize("cell,want", [
-    ("toy.graph", {"build_s", "search.hops_per_query", "search.ms_per_hop"}),
+    ("toy.graph", {"build_s", "search.hops_per_query", "search.ms_per_hop",
+                   "search.host_ms_per_hop", "search.dist_comps_per_query", "request.p95_ms"}),
     ("toy.scan", set()),
 ])
 def test_traced_run_gives_its_layer_metrics(toy_reg, cell, want):

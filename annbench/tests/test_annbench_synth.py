@@ -34,7 +34,7 @@ def test_mixture_shape():
 
 
 def test_generate_reads_the_config():
-    cfg = {"n": 1000, "dim": 8, "num_queries": 10,
+    cfg = {"n": 1000, "dim": 8, "num_queries": 10, "metric": "l2", "dtype": "float32",
            "generator": {"kind": "clustered", "centers_per_64k": 26, "center_scale": 0.7,
                          "query_noise": 1.0}}
     data, q = synth.generate(cfg, 3, "cpu")
