@@ -45,8 +45,11 @@ Tracing (`utils.profiling`): `search` around a batched search, under it
 (`.select`, `.links`, `.membership`, `.score`, `.merge`) and the end test
 (`search.hop.end`, a wait: the host reads whether any beam holds an
 unexpanded entry), and `search.counts` (the wait for the batch's counters);
-counters `search.queries`, `search.hops`, `search.dist_computations`, and
-`search.hops_fused` (one a hop that the kernels ran).
+counters `search.queries`, `search.hops`, `search.dist_computations`,
+`search.hops_fused` (one a hop that the kernels ran) and `search.hop_capped`
+(queries whose beam still held an unexpanded entry when the loop stopped at
+the hop cap; counted for every sub-batch, 0 included, and only while
+tracing: it reads the final beam once more).
 """
 
 from __future__ import annotations
@@ -63,7 +66,7 @@ from flatnav_tpu_torch.ops.distances import (
 )
 from flatnav_tpu_torch.ops import beam_hop
 from flatnav_tpu_torch.ops.gather_distance import gather_distances
-from flatnav_tpu_torch.utils.profiling import count, span, traced, wait
+from flatnav_tpu_torch.utils.profiling import count, is_tracing, span, traced, wait
 
 _INT_SENTINEL = 2**31 - 1
 
@@ -73,6 +76,7 @@ class BeamResults(NamedTuple):
     ids: torch.Tensor  # [B, ef] node ids (meaningless where dist == +inf)
     dist_computations: torch.Tensor  # scalar int64
     hops: torch.Tensor  # scalar int64: total expansions across the batch
+    expanded: torch.Tensor  # [B, ef] bool: the final beam's expanded marks
 
 
 class SearchResults(NamedTuple):
@@ -165,6 +169,13 @@ def safe_query_batch(
             f"or set compact_width."
         )
     return sub
+
+
+def _capped_queries(beam: BeamResults) -> int:
+    """Queries of a finished search whose beam still holds an unexpanded
+    entry: the loop ends for want of one unless the hop cap stops it first,
+    so these are the queries the cap cut short. Reads the card."""
+    return int((~beam.expanded).any(1).sum())
 
 
 def _first_occurrence(ids: torch.Tensor) -> torch.Tensor:
@@ -369,7 +380,8 @@ def beam_search_core(
                 more = it < hop_cap and _flag_at(hop.flag, it)
             else:
                 more = it < hop_cap and _unexpanded_left(beam_e)
-    return BeamResults(beam_d, beam_i, dcomp, hops)
+    # the kernels update `beam_e` in place, the chain rebinds it
+    return BeamResults(beam_d, beam_i, dcomp, hops, beam_e)
 
 
 def table_blocks(vectors: torch.Tensor, queries: torch.Tensor, metric: MetricType):
@@ -477,6 +489,8 @@ def batched_search(
         labs.append(torch.where(torch.isfinite(top_d), labels[top_i.long()], -1))
         with wait("search.counts"):
             n_dc, n_hops = int(beam.dist_computations), int(beam.hops)
+            if is_tracing():
+                count("search.hop_capped", _capped_queries(beam))
         count("search.queries", top_d.shape[0])
         count("search.hops", n_hops)
         count("search.dist_computations", n_dc)

@@ -1180,8 +1180,8 @@ def _clustered_graph(cuda, n, d, m, b, seed=3):
 
 
 @pytest.mark.parametrize("d,ef,e_f,cw", [(128, 512, 64, 0), (960, 192, 16, 0), (128, 100, 16, 300),
-                                         (32, 1024, 128, 0)],
-                         ids=["sift_cell", "gist_cell", "wave_compacted", "plan_edge"])
+                                         (32, 1024, 128, 0), (100, 1536, 64, 0)],
+                         ids=["sift_cell", "gist_cell", "wave_compacted", "plan_edge", "glove_cell"])
 def test_beam_hop_kernels_equal_their_stages_at_the_cells_shapes(cuda, d, ef, e_f, cw):
     from flatnav_tpu_torch.index.search import table_blocks
 
@@ -1221,6 +1221,33 @@ def test_batched_search_routes_agree(cuda, monkeypatch, d, ef, e_f):
     assert "search.hops_fused" not in profiling.snapshot(reset=True)["counters"]
     assert _same_bits(fused.dists, chain.dists) and torch.equal(fused.labels, chain.labels)
     assert (fused.dist_computations, fused.hops) == (chain.dist_computations, chain.hops)
+
+
+@pytest.mark.parametrize("max_hops", [4, 0], ids=["cut", "to_the_end"])
+def test_hop_capped_reads_the_same_beams_on_both_routes(cuda, monkeypatch, max_hops):
+    # `search.hop_capped` reads the kernels' beam, updated in place, and the
+    # chain's alike; glove100.graph's beam: unit rows of d = 100 under
+    # 1 - <q, x>, ef 1536, E 64
+    from flatnav_tpu_torch.index.search import batched_search
+    from flatnav_tpu_torch.utils import profiling
+
+    n, b = 100_000, 1000
+    vectors, queries, links = _clustered_graph(cuda, n, 100, 32, b)
+    vectors = vectors / torch.linalg.vector_norm(vectors, dim=1, keepdim=True)
+    queries = queries / torch.linalg.vector_norm(queries, dim=1, keepdim=True)
+    labels = torch.arange(n, dtype=torch.int32, device=cuda)
+    kw = dict(k=10, ef=1536, expand_factor=64, max_hops=max_hops, metric=MetricType.IP)
+    counted = []
+    for route in ("kernels", "chain"):
+        if route == "chain":
+            _chain_only(monkeypatch)
+        profiling.snapshot(reset=True)
+        with profiling.tracing():
+            res = batched_search(vectors, links, labels, n, queries, **kw)
+        counted.append((res.hops, profiling.snapshot(reset=True)["counters"]["search.hop_capped"]))
+    assert counted[0] == counted[1]
+    if max_hops:
+        assert counted[0][1] == b  # four hops leave every 1536-wide beam unfinished
 
 
 def test_index_add_builds_the_same_links_by_both_routes(cuda, monkeypatch):

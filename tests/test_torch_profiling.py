@@ -314,8 +314,9 @@ def test_search_counters_equal_search_results(built):
         res = batched_search(g.vectors, g.links, g.labels, g.num_nodes, q, k=5, ef=32,
                              expand_factor=4)
     c = prof.snapshot()["counters"]
+    # the toy search converges well before its hop cap
     assert c == {"search.queries": len(_Q), "search.hops": res.hops,
-                 "search.dist_computations": res.dist_computations}
+                 "search.dist_computations": res.dist_computations, "search.hop_capped": 0}
 
 
 @pytest.mark.parametrize("call", ["search", "search_exact", "add"])
@@ -343,16 +344,39 @@ def test_off_path_makes_no_torch_call_and_reads_no_clock(built, monkeypatch):
     _index().add(_DATA[:100], ef_construction=16)
 
 
-def test_profiler_sees_the_same_operations_on_and_off(built):
+def _under(event, name) -> bool:
+    while event is not None:
+        if event.name == name:
+            return True
+        event = event.cpu_parent
+    return False
+
+
+def test_profiler_sees_the_same_operations_on_and_off(built, monkeypatch):
+    # the tracer's one read of the program's state, the hop cap's count (one
+    # a search sub-batch), runs inside a range of this test's, so that its
+    # operations can be set apart
+    from flatnav_tpu_torch.index import search
+
+    mark, real = "test.capped_read", search._capped_queries
+
+    def capped_queries(beam):
+        with torch.profiler.record_function(mark):
+            return real(beam)
+
+    monkeypatch.setattr(search, "_capped_queries", capped_queries)
+
     def ops():
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as p:
             for c in _calls(built).values():
                 c()
-        return [e.name for e in p.events()]
+        reads = sum(e.name == mark for e in p.events())
+        return [e.name for e in p.events() if not _under(e, mark)], reads
 
-    off = ops()
+    off, off_reads = ops()
     with prof.tracing():
-        on = ops()
+        on, on_reads = ops()
+    assert (off_reads, on_reads) == (0, 1)  # one search of one sub-batch
     assert not any(n.startswith("flatnav.") for n in off)
     assert {n for n in on if n.startswith("flatnav.")} >= {"flatnav.search.hop", "flatnav.scan.prepare"}
     assert [n for n in on if not n.startswith("flatnav.")] == off
