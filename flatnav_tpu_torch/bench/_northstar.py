@@ -384,13 +384,18 @@ def recorded_hop(width: int, nth: int = 4):
 
 def k2_times(args) -> dict | None:
     """K2 (`gather_distances`) alone at recorded arguments, beside its plain
-    version and its bound; it must be bit-equal to the plain version. Not
-    counted on the runner's path. None without a recorded call on the card."""
+    version and its bound; it must be bit-equal to the plain version at
+    every id in [0, N) and give NaN at the others (the hop hands it -1
+    where a candidate is not fresh). Not counted on the runner's path. None
+    without a recorded call on the card."""
     if args is None or not args[0].is_cuda:
         return None
     saved = launches()
     vectors, ids, queries, metric = args
-    if not torch.equal(gather_distances(*args), gather_distances_plain(*args)):
+    ok = (ids >= 0) & (ids < vectors.shape[0])
+    got = gather_distances(*args)
+    want = gather_distances_plain(vectors, ids.clamp(0, vectors.shape[0] - 1), queries, metric)
+    if not (torch.equal(got[ok], want[ok]) and bool(got[~ok].isnan().all())):
         raise RuntimeError("K2 is not bit-equal to its plain version")
     ms = timed(lambda: gather_distances(*args), reps=10, warmup=2)
     plain_ms = timed(lambda: gather_distances_plain(*args), reps=2, warmup=1)

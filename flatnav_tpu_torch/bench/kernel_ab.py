@@ -2,7 +2,7 @@
 
     python -m flatnav_tpu_torch.bench.kernel_ab --baseline DIR [DIR ...] [--reps 10] [--cases k2,k1]
     python -m flatnav_tpu_torch.bench.kernel_ab --cases k3 [--baseline DIR] [--k3 phaseB-1M,...]
-    python -m flatnav_tpu_torch.bench.kernel_ab --cases hop [--hop sift,gist,wave]
+    python -m flatnav_tpu_torch.bench.kernel_ab --cases hop [--hop sift,gist,glove,wave] [--baseline DIR]
 
 DIR holds the other version's `gather_distance.cu`, `fused_scan.cu` and/or
 `select_k.cu`,
@@ -70,9 +70,10 @@ over the concatenated 2k, two launches); a seeded case also times this
 checkout's kernel in that two-launch form ("K3 two launches"); then the
 plain version once, and `measure.select_bound`. The last line is every K3 case as one JSON object.
 
-Hop (`--cases hop`, `HOP_CASES`: the sift1m.graph and gist1m.graph cells'
-searches at B=1000, ef 512 / E 64 and ef 192 / E 16, M=32, and a build wave
-at B=8192, ef 100, E 16): the hop's bookkeeping by `ops.beam_hop`'s three
+Hop (`--cases hop`, `HOP_CASES`: the sift1m.graph, gist1m.graph and
+glove100.graph cells' searches at B=1000, ef 512 / E 64, ef 192 / E 16 and
+ef 1536 / E 64, M=32, and a build wave at B=8192, ef 100, E 16): the hop's
+bookkeeping by `ops.beam_hop`'s three
 kernels beside the PyTorch chain they replace, on one synthetic mid-search
 hop (`_hop_state`), held bit-equal first; no baseline. The new distances are
 drawn like the beam's, so about half the fresh candidates beat the beam's
@@ -80,8 +81,12 @@ last entry and the merge sorts many more than in a real search's later
 hops: its reading is an upper end. `measure.hop_bound` bounds the whole
 hop, and each stage is read against its own bound
 (`measure.hop_stage_bounds`). The last line is every hop case as one JSON
-object. `hop_lockstep` holds the kernels to the chain after every stage of
-every hop of a whole search (the `gpu` tests and chip_smoke.py call it).
+object. Then K2 at the three cells' hops (`k2_hop_cases`): on the hop's
+full candidate ids and on its score ids (-1 where not fresh), with the
+cell's share of fresh candidates, rows and d; with `--baseline`, the other
+version's K2 on both too. The next line is those cases as one JSON object.
+`hop_lockstep` holds the kernels to the chain after every stage of every
+hop of a whole search (the `gpu` tests and chip_smoke.py call it).
 Needs a CUDA card; exits 2 without one.
 """
 
@@ -111,7 +116,7 @@ from flatnav_tpu_torch.bench.measure import (
 )
 from flatnav_tpu_torch.index import search as search_mod
 from flatnav_tpu_torch.ops import beam_hop
-from flatnav_tpu_torch.ops.distances import squared_norms
+from flatnav_tpu_torch.ops.distances import MetricType, squared_norms
 from flatnav_tpu_torch.bench._northstar import int8_operands
 from flatnav_tpu_torch.ops.fused_scan import (
     _ROW_TYPES,
@@ -221,13 +226,13 @@ K2_CASES = {
 }
 
 
-def _plain_in_chunks(v, ids, q, budget=1 << 31):
+def _plain_in_chunks(v, ids, q, budget=1 << 31, metric=MetricType.L2):
     """`gather_distances_plain` a chunk of queries at a time, each chunk's
     padded [B, C, p] f32 block within `budget` bytes"""
     b, c = ids.shape
     p = 1 << max(0, v.shape[1] - 1).bit_length()
     step = max(1, budget // (c * p * 4))
-    return torch.cat([gather_distances_plain(v, ids[lo : lo + step], q[lo : lo + step])
+    return torch.cat([gather_distances_plain(v, ids[lo : lo + step], q[lo : lo + step], metric)
                       for lo in range(0, b, step)])
 
 
@@ -560,14 +565,24 @@ def k3_cases(reps: int, names: list[str], base: BaseEntry | None = None) -> list
 
 
 #: hop cases: label -> (B, ef, E, M): the graph cells' searches and a build wave
-HOP_CASES = {"sift": (1000, 512, 64, 32), "gist": (1000, 192, 16, 32), "wave": (8192, 100, 16, 32)}
+HOP_CASES = {"sift": (1000, 512, 64, 32), "gist": (1000, 192, 16, 32),
+             "glove": (1000, 1536, 64, 32), "wave": (8192, 100, 16, 32)}
+#: K2 at a graph cell's hop: label -> (rows, d, metric, the share of the
+#: hop's candidates that are fresh in the cell's searches: its
+#: `search.dist_comps_per_query` less the entry's 101, over the slots scored)
+K2_HOP_CASES = {"sift": (1_000_000, 128, MetricType.L2, 0.32),
+                "gist": (1_000_000, 960, MetricType.L2, 0.35),
+                "glove": (1_183_514, 100, MetricType.IP, 0.28)}
 
 
-def _hop_state(b, ef, e_f, m, g):
-    """A mid-search hop's inputs over 1M ids: hop `it`, a third of the cap;
+def _hop_state(b, ef, e_f, m, g, n=1_000_000, again=1 / 3, in_row=True):
+    """A mid-search hop's inputs over n ids: hop `it`, a third of the cap;
     an ordered beam, about half of it expanded; it*E ids in the history;
-    candidates of which a third repeat the beam, the history or the row."""
-    n, em = 1_000_000, e_f * m
+    candidates of which a share `again` repeat the beam, the history or
+    (`in_row`) the row. A repeat of the row can copy a candidate that was
+    itself replaced, and so be fresh; without `in_row` the share of fresh
+    candidates is close to 1 - again."""
+    em = e_f * m
     hop_cap = search_mod._hop_cap(ef, e_f)
     it = hop_cap // 3
 
@@ -580,9 +595,9 @@ def _hop_state(b, ef, e_f, m, g):
     visited = torch.full((b, hop_cap * e_f), -1, dtype=torch.int32, device="cuda")
     visited[:, : it * e_f] = ids((b, it * e_f))
     nbrs = ids((b, em))
-    seen = torch.cat([beam_i, visited[:, : it * e_f], nbrs], dim=1)
+    seen = torch.cat([beam_i, visited[:, : it * e_f], *([nbrs] if in_row else [])], dim=1)
     pick = torch.randint(0, seen.shape[1], (b, em), device="cuda", generator=g)
-    again = torch.rand((b, em), device="cuda", generator=g) < 1 / 3
+    again = torch.rand((b, em), device="cuda", generator=g) < again
     nbrs = torch.where(again, seen.gather(1, pick), nbrs)
     scores = torch.rand((b, em), device="cuda", generator=g)
     return it, (beam_d, beam_i, beam_e, visited), nbrs, scores
@@ -618,7 +633,10 @@ def hop_lockstep(links, score, entry, n: int, b: int, *, ef: int, e_f: int, cw: 
     expanded marks, the history (the kernels keep it sorted), the
     candidates and fresh flags, the merged beam (distances by their bits),
     both counters and the end flag must be equal after each stage; a
-    difference raises. -> (hops run, the kernels' BeamHop)."""
+    difference raises. The kernels' route scores the score ids, which must
+    be the chain's candidates where fresh and -1 elsewhere, and the chain
+    scores every candidate, as the search did before it handed the scorer
+    score ids. -> (hops run, the kernels' BeamHop)."""
     m = links.shape[1]
     hop_cap = hop_cap or search_mod._hop_cap(ef, e_f)
     d_c, i_c, e_c, vis = entry_state(entry, n, b, ef, hop_cap * e_f)
@@ -643,11 +661,12 @@ def hop_lockstep(links, score, entry, n: int, b: int, *, ef: int, e_f: int, cw: 
         same(torch.equal(hist, vis.sort(dim=1).values), "history")
         same(torch.equal(nb_k, nb_c) and torch.equal(fr_k, fr_c), "membership")
         s = score(nb_c)
+        same(torch.equal(hop.score_ids, torch.where(fr_c, nb_c, -1)), "score ids")
         dcomp_c += fr_c.sum()
         hops_c += int(sv_c.sum())
         d_c, i_c, e_c = search_mod._merge((d_c, i_c, e_c), nb_c, fr_c,
                                           torch.where(fr_c, s, float("inf")), ef)
-        hop.merge(s, nb_k, it + 1)
+        hop.merge(score(hop.score_ids), nb_k, it + 1)
         same(torch.equal(d_k.view(torch.int32), d_c.view(torch.int32))
              and torch.equal(i_k, i_c), "merged beam")
         same(torch.equal(e_k, e_c), "expanded marks after merge")
@@ -728,11 +747,98 @@ def hop_cases(reps: int, names: list[str]) -> list[dict]:
     return out
 
 
+def k2_hop_cases(reps: int, names: list[str], base: BaseEntry | None = None) -> list[dict]:
+    """K2 at a graph cell's hop (`K2_HOP_CASES`): the hop's candidates from
+    `_hop_state` at the cell's share of fresh ones, run through select and
+    membership, then scored twice, on the candidates' own ids ("full ids",
+    as the search scored them before it handed K2 score ids) and on the
+    score ids (-1 where not fresh), over a table of the cell's rows and d
+    (normal rows; unit rows under IP). Both through the C entry, with
+    `base` (the other version's K2) on both as well. Held first: the full
+    ids bit-equal to the plain version, the score ids' live slots bit-equal
+    to the same, NaN elsewhere. Each reading beside `measure.gather_bound`
+    of its ids (the distinct rows they name) and its time a loaded row: the
+    score ids' over the full ids' is what packing the live ids buys."""
+    new = BaseEntry(_build.load("gather_distance"),
+                    (_build.CSRC / "gather_distance.cu").read_text(), "gather_distance_launch")
+    out = []
+    for name in names:
+        n, d, metric, share = K2_HOP_CASES[name]
+        b, ef, e_f, m = HOP_CASES[name]
+        g = torch.Generator(device="cuda").manual_seed(1)
+        _, start, nbrs, _ = _hop_state(b, ef, e_f, m, g, n=n, again=1 - share, in_row=False)
+        beam_d, beam_i, beam_e, visited = (t.clone() for t in start)
+        counts = [torch.zeros((), dtype=torch.int64, device="cuda") for _ in range(2)]
+        hop = beam_hop.BeamHop(beam_d, beam_i, beam_e, visited.sort(dim=1).values, *counts,
+                               e_f=e_f, m=m)
+        hop.select()
+        hop.membership(nbrs)
+        ids = {"full ids": nbrs.contiguous(), "score ids": hop.score_ids.clone()}
+        live = ids["score ids"] >= 0
+        del hop, beam_d, beam_i, beam_e, visited, start
+        v = torch.randn((n, d), device="cuda", generator=g)
+        q = torch.randn((b, d), device="cuda", generator=g)
+        if metric == MetricType.IP:
+            v /= torch.linalg.vector_norm(v, dim=1, keepdim=True)
+            q /= torch.linalg.vector_norm(q, dim=1, keepdim=True)
+        c = nbrs.shape[1]
+        outs, fns = {}, {}
+        entries = {"": new, **({"base ": base} if base is not None else {})}
+        for prefix, entry in entries.items():
+            for kind, t in ids.items():
+                key = prefix + kind
+                outs[key] = torch.empty((b, c), device="cuda")
+                args = dict(vec=v.data_ptr(), vec_type=_VEC_TYPES[v.dtype], ids=t.data_ptr(),
+                            q=q.data_ptr(), n=n, d=d, B=b, C=c,
+                            ip=int(metric == MetricType.IP), out=outs[key].data_ptr(),
+                            stream=_stream())
+                fns[key] = (lambda e, a: lambda: e(**a))(entry, args)
+        times = alternate(fns, reps)
+        want = _plain_in_chunks(v, ids["full ids"], q, metric=metric)
+        for key, got in outs.items():
+            ok = (torch.equal(got, want) if key.endswith("full ids") else
+                  torch.equal(got[live], want[live]) and bool(got[~live].isnan().all()))
+            if not ok:
+                raise RuntimeError(f"K2 at the {name} hop: {key} differs from the plain version")
+        del want
+        loaded = {"full ids": b * c, "score ids": int(live.sum())}
+        bounds = {kind: gather_bound(v, t, q) for kind, t in ids.items()}
+        distinct = {kind: int(torch.unique(t[t >= 0]).numel()) for kind, t in ids.items()}
+        print(f"K2 at the {name} hop: B={b} C={c} d={d} {metric.name} over {n:,} rows; "
+              f"{loaded['score ids']:,} of {b * c:,} slots fresh "
+              f"({100 * loaded['score ids'] / (b * c):.1f}%); distinct rows "
+              f"{distinct['full ids']:,} (full ids), {distinct['score ids']:,} (score ids); "
+              f"bit-equal")
+        mean = {k: sum(ts) / len(ts) for k, ts in times.items()}
+        row = {"case": name, "b": b, "c": c, "d": d, "n": n, "metric": metric.name,
+               "slots": b * c, "live": loaded["score ids"],
+               "distinct_full": distinct["full ids"], "distinct_live": distinct["score ids"]}
+        for key, ts in times.items():
+            kind = "full ids" if key.endswith("full ids") else "score ids"
+            bound = bounds[kind][0]
+            per_row = mean[key] * 1e6 / loaded[kind]
+            print(f"  {key:>16}: {mean[key]:8.4f} ms (readings "
+                  f"{', '.join(f'{t:.4f}' for t in ts)}); {per_row:.3f} ns a loaded row; "
+                  f"{100 * bound / mean[key]:5.1f}% of its bound {bound:.4f} ms")
+            row[key.replace(" ", "_") + "_ms"] = mean[key]
+            row[kind.replace(" ", "_") + "_bound_ms"] = bound
+        for prefix in entries:
+            ratio = ((mean[prefix + "score ids"] / loaded["score ids"])
+                     / (mean[prefix + "full ids"] / loaded["full ids"]))
+            print(f"  {(prefix or 'new ') + 'K2'}: a loaded row takes {ratio:.3f}x as long on "
+                  f"the score ids as on the full ids")
+            row[prefix.replace(" ", "_") + "row_time_ratio"] = ratio
+        out.append(row)
+        del v, q, ids, outs, fns, live
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", type=Path, nargs="+",
-                    help="the other version's csrc (needed by k1 and k2; k3 optional), "
-                         "then K1 copies timed beside it")
+                    help="the other version's csrc (needed by k1 and k2; k3 and hop "
+                         "optional), then K1 copies timed beside it")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--cases", default="k2,k1", help="comma-separated: k2, k1, k3, hop")
     ap.add_argument("--k1", default=",".join(K1_CASES),
@@ -754,8 +860,12 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
-    _build.build([_SOURCES[c][0] if c in _SOURCES else "beam_hop" for c in cases])
-    with_base = ab + (["k3"] if "k3" in cases and args.baseline is not None else [])
+    _build.build(sorted({s for c in cases for s in (
+        [_SOURCES[c][0]] if c in _SOURCES else ["beam_hop", "gather_distance"])}))
+    with_base = list(ab)  # k3 and the hop's K2 take a baseline where one is given
+    if args.baseline is not None:
+        with_base += [c for c, asked in (("k3", "k3" in cases), ("k2", "hop" in cases))
+                      if asked and c not in with_base]
     base = build_baseline(args.baseline[0], with_base) if with_base else {}
     copies = [build_baseline(d, ["k1"])["k1"] for d in args.baseline[1:]] if "k1" in cases else []
     labels = [f"base{i + 1 if i else ''} {d}" for i, d in enumerate(args.baseline or [])]
@@ -772,7 +882,10 @@ def main(argv=None) -> int:
                           str(args.baseline[0]),
                           "k3": k3_cases(args.reps, args.k3.split(","), base.get("k3"))}))
     if "hop" in cases:
-        print(json.dumps({"card": card(), "hop": hop_cases(args.reps, args.hop.split(","))}))
+        hops = args.hop.split(",")
+        print(json.dumps({"card": card(), "hop": hop_cases(args.reps, hops)}))
+        print(json.dumps({"card": card(), "k2_at_hop": k2_hop_cases(
+            args.reps, [h for h in hops if h in K2_HOP_CASES], base.get("k2"))}))
     return 0
 
 

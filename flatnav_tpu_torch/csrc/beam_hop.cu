@@ -26,7 +26,11 @@
 //               slot per id and keeps the id's lowest position. With a
 //               compact width CC: the first CC candidates with the fresh
 //               ones first, each group in position order (the chain's
-//               stable argsort of ~fresh).
+//               stable argsort of ~fresh). Also the score ids beside
+//               them: the candidate's id where fresh, -1 elsewhere, which
+//               K2 scores without loading a row. The candidates
+//               themselves keep their ids: the merge of a beam out of
+//               order can take a candidate that is not fresh.
 //   merge       the chain sorts the new distances stably (+inf where not
 //               fresh), keeps ef of them and merges them into the beam,
 //               beam entries first on ties: the first ef of beam and new
@@ -279,7 +283,8 @@ membership_kernel(const float* __restrict__ beam_d, const int* __restrict__ beam
                   const int* __restrict__ hist, const int* __restrict__ nbrs,
                   const uint8_t* __restrict__ sel_valid, int ef, int W, int C, int E,
                   int M, int CC, uint8_t* __restrict__ fresh,
-                  int* __restrict__ nbrs_out, unsigned char* scratch, size_t scratch_row) {
+                  int* __restrict__ nbrs_out, int* __restrict__ score_ids,
+                  unsigned char* scratch, size_t scratch_row) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int known_empty, first_empty;  // EMPTY's own entries
   unsigned char* base = WS ? scratch + blockIdx.x * scratch_row : smem;
@@ -344,7 +349,10 @@ membership_kernel(const float* __restrict__ beam_d, const int* __restrict__ beam
   __syncthreads();
 
   if (CC == 0) {
-    for (int p = threadIdx.x; p < C; p += THREADS) fresh[row * C + p] = fl[p];
+    for (int p = threadIdx.x; p < C; p += THREADS) {
+      fresh[row * C + p] = fl[p];
+      score_ids[row * C + p] = fl[p] ? nb[p] : -1;
+    }
     return;
   }
   const int per = (C + THREADS - 1) / THREADS;
@@ -360,6 +368,7 @@ membership_kernel(const float* __restrict__ beam_d, const int* __restrict__ beam
     if (to < CC) {
       nbrs_out[row * CC + to] = nb[p];
       fresh[row * CC + to] = f;
+      score_ids[row * CC + to] = f ? nb[p] : -1;
     }
   }
 }
@@ -551,12 +560,14 @@ extern "C" int beam_select_launch(const void* beam_i, void* beam_e, void* hist, 
 
 // beam_d [B, ef] float32, beam_i [B, ef] int32, hist [B, W] int32 (sorted),
 // nbrs [B, C = E*M] int32, sel_valid [B, E] bool. CC = 0: fresh [B, C] bool
-// out. 0 < CC < C: nbrs_out and fresh [B, CC] out, fresh first.
+// out. 0 < CC < C: nbrs_out and fresh [B, CC] out, fresh first. score_ids
+// int32 out, shaped as fresh: the id where fresh, else -1.
 extern "C" int beam_membership_launch(const void* beam_d, const void* beam_i,
                                       const void* hist, const void* nbrs,
                                       const void* sel_valid, int B, int ef, int W, int C,
                                       int E, int M, int CC, void* fresh, void* nbrs_out,
-                                      void* ws, size_t ws_row, void* stream) {
+                                      void* score_ids, void* ws, size_t ws_row,
+                                      void* stream) {
   if (B == 0) return 0;
   if (ef < 1 || ef > WIDTH_MAX || W < 1 || W > WIDTH_MAX || E < 1 || M < 1 ||
       C != E * M || C > WIDTH_MAX || CC < 0 || CC >= C)
@@ -566,7 +577,8 @@ extern "C" int beam_membership_launch(const void* beam_d, const void* beam_i,
                 static_cast<const float*>(beam_d), static_cast<const int*>(beam_i),
                 static_cast<const int*>(hist), static_cast<const int*>(nbrs),
                 static_cast<const uint8_t*>(sel_valid), ef, W, C, E, M, CC,
-                static_cast<uint8_t*>(fresh), static_cast<int*>(nbrs_out));
+                static_cast<uint8_t*>(fresh), static_cast<int*>(nbrs_out),
+                static_cast<int*>(score_ids));
 }
 
 // beam_d [B, ef] float32, beam_i [B, ef] int32, beam_e [B, ef] bool (all

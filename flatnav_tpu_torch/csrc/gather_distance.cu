@@ -30,6 +30,13 @@
 // the other choice, and slower). An id outside [0, n) reads nothing and
 // scores NaN.
 //
+// The search's hop hands K2 -1 for each candidate that is not fresh, about
+// two thirds of them. So the block stages its ids packed: those in [0, n)
+// first, in position order, each beside its position, and it writes NaN
+// for the others as it stages them. The warps then take only live ids, R
+// at a time, so the row loads a warp keeps in flight all read a row. A
+// row's sum is formed as it would be in any other slot: the same bits.
+//
 // p <= 1024 ("registers"; f16 pairs at p = 1024 take the carry stack,
 // where ptxas gave this form an 8-byte stack frame): a lane keeps all K
 // terms of a row in registers
@@ -68,6 +75,37 @@ namespace {
 constexpr int WARPS = 4;
 constexpr int CPB = 128;  // candidates per block
 constexpr unsigned FULL = 0xffffffffu;
+static_assert(CPB == WARPS * 32, "stage_ids gives each thread one candidate");
+
+// Stages a block's cn <= CPB candidate ids (`ids`, its slice of a row) in
+// shared memory, packed: sid[j] is the j-th id in [0, n) in position order
+// and spos[j] its position. Every other slot gets NaN in `ob` (the block's
+// slice of the output). Every thread calls it; the caller syncs before it
+// reads sid. -> the number of ids in [0, n).
+__device__ __forceinline__ int stage_ids(const int* ids, int n, int cn, int* sid, int* spos,
+                                         float* ob) {
+  __shared__ int warp_live[WARPS];
+  const int i = threadIdx.x, lane = i % 32, warp = i / 32;
+  const int id = i < cn ? ids[i] : -1;
+  const bool live = id >= 0 && id < n;
+  const unsigned mask = __ballot_sync(FULL, live);
+  if (lane == 0) warp_live[warp] = __popc(mask);
+  __syncthreads();
+  int before = 0, total = 0;
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) {
+    before += w < warp ? warp_live[w] : 0;
+    total += warp_live[w];
+  }
+  if (live) {
+    const int j = before + __popc(mask & ((1u << lane) - 1));
+    sid[j] = id;
+    spos[j] = i;
+  } else if (i < cn) {
+    ob[i] = __int_as_float(0x7fc00000);
+  }
+  return total;
+}
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -125,12 +163,13 @@ __global__ void __launch_bounds__(WARPS * 32)
 gather_distance_kernel(const VT* __restrict__ vec, const int* __restrict__ ids,
                        const float* __restrict__ q, int n, int d, int p, int C,
                        float* __restrict__ out) {
-  __shared__ int sid[CPB];
+  __shared__ int sid[CPB], spos[CPB];
   const int b = blockIdx.x;
   const int c0 = blockIdx.y * CPB;
   const int cn = min(CPB, C - c0);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int i = threadIdx.x; i < cn; i += WARPS * 32) sid[i] = ids[(size_t)b * C + c0 + i];
+  float* ob = out + (size_t)b * C + c0;
+  const int live = stage_ids(ids + (size_t)b * C + c0, n, cn, sid, spos, ob);
 
   float qr[K];
 #pragma unroll
@@ -140,14 +179,12 @@ gather_distance_kernel(const VT* __restrict__ vec, const int* __restrict__ ids,
   }
   __syncthreads();
 
-  float* ob = out + (size_t)b * C + c0;
-  for (int g = warp * R; g < cn; g += WARPS * R) {
+  for (int g = warp * R; g < live; g += WARPS * R) {
     int id[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int c = g + r;
-      id[r] = c < cn ? sid[c] : -1;
-      if (id[r] >= n) id[r] = -1;  // warp-uniform: every lane reads the same id
+      id[r] = c < live ? sid[c] : -1;  // warp-uniform: every lane reads the same id
     }
     // every row load of the R candidates first, then the arithmetic
     float v[R][K];
@@ -185,9 +222,8 @@ gather_distance_kernel(const VT* __restrict__ vec, const int* __restrict__ ids,
     if (lane == 0) {
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        if (g + r >= cn) break;
-        ob[g + r] = id[r] < 0 ? __int_as_float(0x7fc00000)
-                              : (IP ? __fsub_rn(1.f, v[r][0]) : v[r][0]);
+        if (g + r >= live) break;
+        ob[spos[g + r]] = IP ? __fsub_rn(1.f, v[r][0]) : v[r][0];
       }
     }
   }
@@ -231,24 +267,23 @@ gather_distance_deep(const VT* __restrict__ vec, const int* __restrict__ ids,
                      const float* __restrict__ q, int n, int d, int nc, int lg, int C,
                      float* __restrict__ out) {
   extern __shared__ float stack[];
-  __shared__ int sid[CPB];
+  __shared__ int sid[CPB], spos[CPB];
   const int b = blockIdx.x;
   const int c0 = blockIdx.y * CPB;
   const int cn = min(CPB, C - c0);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int i = threadIdx.x; i < cn; i += WARPS * 32) sid[i] = ids[(size_t)b * C + c0 + i];
+  float* ob = out + (size_t)b * C + c0;
+  const int live = stage_ids(ids + (size_t)b * C + c0, n, cn, sid, spos, ob);
   __syncthreads();
 
   const float* qb = q + (size_t)b * d;
   const int slots = lg + 1;
-  float* ob = out + (size_t)b * C + c0;
-  for (int g = warp * RD; g < cn; g += WARPS * RD) {
+  for (int g = warp * RD; g < live; g += WARPS * RD) {
     int id[RD];
 #pragma unroll
     for (int r = 0; r < RD; ++r) {
       const int c = g + r;
-      id[r] = c < cn ? sid[c] : -1;
-      if (id[r] >= n) id[r] = -1;  // warp-uniform
+      id[r] = c < live ? sid[c] : -1;  // warp-uniform
     }
     float root[RD][2];
     for (int c = 0; c < nc; ++c) {
@@ -324,9 +359,7 @@ gather_distance_deep(const VT* __restrict__ vec, const int* __restrict__ ids,
     if (lane == 0) {
 #pragma unroll
       for (int r = 0; r < RD; ++r)
-        if (g + r < cn)
-          ob[g + r] = id[r] < 0 ? __int_as_float(0x7fc00000)
-                                : (IP ? __fsub_rn(1.f, root[r][0]) : root[r][0]);
+        if (g + r < live) ob[spos[g + r]] = IP ? __fsub_rn(1.f, root[r][0]) : root[r][0];
     }
   }
 }

@@ -30,7 +30,10 @@ the first fresh candidates of a hop) and, on `beam_search_core`,
 sharded table's gather otherwise).
 
 The hop's scorer is `gather_distances` (kernel K2) for float tables; integer
-tables keep the exact int32 path.
+tables keep the exact int32 path. The scorer is handed only the hop's
+fresh candidates: -1 in every other slot, for which K2 loads no row (the
+merge reads no score of a slot that is not fresh). The merge keeps the
+candidates' own ids.
 
 Two routes run the rest of the hop, with the same results bit for bit. On a
 CUDA card (`ops.beam_hop.engages`), at every shape, select, membership and
@@ -46,10 +49,14 @@ Tracing (`utils.profiling`): `search` around a batched search, under it
 (`search.hop.end`, a wait: the host reads whether any beam holds an
 unexpanded entry), and `search.counts` (the wait for the batch's counters);
 counters `search.queries`, `search.hops`, `search.dist_computations`,
-`search.hops_fused` (one a hop that the kernels ran) and `search.hop_capped`
+`search.hops_fused` (one a hop that the kernels ran), `search.hop_capped`
 (queries whose beam still held an unexpanded entry when the loop stopped at
 the hop cap; counted for every sub-batch, 0 included, and only while
-tracing: it reads the final beam once more).
+tracing: it reads the final beam once more) and `search.k2_slots` (the
+slots the hops handed the scorer, B x C a hop, counted on the host). The
+fresh ones among them are `search.dist_computations` less the entry scan's
+`search.queries` x (num_initializations + 1), so 1 - that / k2_slots is
+the share of K2's slots that load no row.
 """
 
 from __future__ import annotations
@@ -77,6 +84,7 @@ class BeamResults(NamedTuple):
     dist_computations: torch.Tensor  # scalar int64
     hops: torch.Tensor  # scalar int64: total expansions across the batch
     expanded: torch.Tensor  # [B, ef] bool: the final beam's expanded marks
+    slots: int  # candidate slots handed to the scorer, B x C a hop
 
 
 class SearchResults(NamedTuple):
@@ -289,7 +297,8 @@ def beam_search_core(
 
     `score_block(ids [B, C] int32) -> [B, C] float32` scores node ids[b, c]
     against query b; `entry_block(cand [NI]) -> [B, NI]` scores the entry
-    candidates that every query shares.
+    candidates that every query shares. `score_block` gets -1 in place of
+    each candidate that is not fresh, whose score the merge does not read.
 
     `links_block(ids [B, E] int32) -> [B, E*M] int32` resolves neighbor
     lists; None is a gather from `links`. A row-sharded table supplies its
@@ -344,7 +353,7 @@ def beam_search_core(
                                    compact_width=compact_width)
         else:
             hop, pos = None, torch.arange(ef, device=dev)
-        it = 0
+        it = slots = 0
         more = it < hop_cap and _unexpanded_left(beam_e)
 
     while more:
@@ -364,7 +373,9 @@ def beam_search_core(
                         beam_d, beam_i, visited, it, cur_ids, nbrs, sel_valid, m,
                         compact_width)
             with span("search.hop.score"):
-                nd = score_block(nbrs)
+                ids = hop.score_ids if hop else torch.where(fresh, nbrs, -1)
+                slots += ids.numel()
+                nd = score_block(ids)
                 if not hop:
                     nd = torch.where(fresh, nd, float("inf"))
             with span("search.hop.merge"):
@@ -381,7 +392,7 @@ def beam_search_core(
             else:
                 more = it < hop_cap and _unexpanded_left(beam_e)
     # the kernels update `beam_e` in place, the chain rebinds it
-    return BeamResults(beam_d, beam_i, dcomp, hops, beam_e)
+    return BeamResults(beam_d, beam_i, dcomp, hops, beam_e, slots)
 
 
 def table_blocks(vectors: torch.Tensor, queries: torch.Tensor, metric: MetricType):
@@ -494,6 +505,7 @@ def batched_search(
         count("search.queries", top_d.shape[0])
         count("search.hops", n_hops)
         count("search.dist_computations", n_dc)
+        count("search.k2_slots", beam.slots)
         dcomp += n_dc
         hops += n_hops
     return SearchResults(torch.cat(dists), torch.cat(labs), dcomp, hops)

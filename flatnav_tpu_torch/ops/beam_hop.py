@@ -17,6 +17,10 @@ reuses. The history differs from the chain's in one way: it is kept sorted
 (`select` merges each hop's ids into it), where the chain keeps it in hop
 order and sorts it in every hop's membership test. Both start as all -1.
 The host's work a hop is one ctypes call a stage with pointers taken once.
+
+Membership also writes the hop's candidates as the scorer gets them, the
+score ids: the id where fresh, -1 elsewhere (K2 loads no row for -1). The
+candidates keep their ids for the merge.
 """
 
 from __future__ import annotations
@@ -65,7 +69,7 @@ def _lib():
         for fn, args in (
             (lib.beam_hop_smem_limit, [ctypes.POINTER(i)]),
             (lib.beam_select_launch, [p, p, p, i, i, i, i, p, p, p, p, z, p]),
-            (lib.beam_membership_launch, [p, p, p, p, p, i, i, i, i, i, i, i, p, p, p, z, p]),
+            (lib.beam_membership_launch, [p, p, p, p, p, i, i, i, i, i, i, i, p, p, p, p, z, p]),
             (lib.beam_merge_launch, [p, p, p, p, p, p, i, i, i, p, p, i, p, z, p]),
         ):
             fn.argtypes = args
@@ -81,8 +85,8 @@ class BeamHop:
     the start; a search of hop_cap hops of `e_f` has W = hop_cap * e_f);
     dcomp, hops: int64 counters. All contiguous, on one card, and updated
     in place. `workspace` is the global-memory stand-in for shared memory
-    (None where every stage fits shared memory). `BeamHop.launches` counts
-    the kernels' launches."""
+    (None where every stage fits shared memory). `membership` also fills
+    `score_ids`. `BeamHop.launches` counts the kernels' launches."""
 
     launches = 0
 
@@ -102,6 +106,8 @@ class BeamHop:
         self.sel_valid = torch.empty((b, e_f), dtype=torch.bool, device=dev)
         self.fresh = torch.empty((b, cc or em), dtype=torch.bool, device=dev)
         self.nbrs_out = torch.empty((b, cc), dtype=torch.int32, device=dev) if cc else None
+        #: the candidates as the scorer gets them: the id where fresh, -1 elsewhere
+        self.score_ids = torch.empty((b, cc or em), dtype=torch.int32, device=dev)
         #: set to a hop's stamp by its merge where a beam holds an unexpanded entry
         self.flag = torch.zeros((), dtype=torch.int32, device=dev)
         self._state = (beam_d, beam_i, beam_e, hist, dcomp, hops)  # the pointers' owners
@@ -117,8 +123,9 @@ class BeamHop:
         d, i, e, h, dc, hp = (t.data_ptr() for t in self._state)
         cur, sv, fr = self.cur_ids.data_ptr(), self.sel_valid.data_ptr(), self.fresh.data_ptr()
         self._select = (lib.beam_select_launch, (i, e, h, b, ef, e_f, w, cur, sv, hp, *ws, stream))
-        self._member = (lib.beam_membership_launch, (d, i, h), (sv, b, ef, w, em, e_f, m, cc, fr,
-                        self.nbrs_out.data_ptr() if cc else 0, *ws, stream))
+        self._member = (lib.beam_membership_launch, (d, i, h), (
+            sv, b, ef, w, em, e_f, m, cc, fr, self.nbrs_out.data_ptr() if cc else 0,
+            self.score_ids.data_ptr(), *ws, stream))
         self._merge = (lib.beam_merge_launch, (d, i, e), (fr, b, ef, cc or em, dc,
                        self.flag.data_ptr()), (*ws, stream))
 
@@ -139,7 +146,7 @@ class BeamHop:
         source, first occurrence in the row, not in the beam (finite
         entries), not in the history. -> (nbrs, fresh [B, E*M] bool), or
         with a compact width CC < E*M the first CC candidates fresh-first
-        ([B, CC] each); overwritten by the next hop."""
+        ([B, CC] each); overwritten by the next hop, as is `score_ids`."""
         if nbrs.dtype != torch.int32 or not nbrs.is_contiguous():
             nbrs = nbrs.to(torch.int32).contiguous()
         if nbrs.shape != (self.b, self.em) or not nbrs.is_cuda:

@@ -59,8 +59,9 @@ def gather_distances(
     """`dist(queries[b], vectors[ids[b, c]])` -> [B, C] float32.
 
     vectors: [N, d] float32/bfloat16/float16, any d; ids: [B, C]
-    int32 in [0, N) (the kernel scores an id outside that range NaN);
-    queries: [B, d].
+    int32 in [0, N) (the kernel scores an id outside that range NaN and
+    loads no row for it: the search hands it -1 where a candidate is not
+    fresh); queries: [B, d].
     `gather_distances.launches` counts kernel launches."""
     if vectors.device.type == "cpu":
         return gather_distances_plain(vectors, ids, queries, metric)

@@ -15,6 +15,12 @@ their bits), ids, distance computations and hops must be equal.
 The JAX package's default merge ("gather", by ranks) assumes no NaN
 distances; the NaN cases run its stable-sort merge, which its docstring
 gives as bit-identical.
+
+The search hands its scorer -1 in place of every candidate that is not
+fresh (K2 loads no row for it); each case also runs with a scorer that
+scores every candidate instead, as the search did before ("_every_candidate"):
+both must give the JAX hop's beams. The integer table's and PQ's searches
+are held, on recorded hops, to the same searches scoring every candidate.
 """
 
 import jax.numpy as jnp
@@ -24,8 +30,11 @@ import torch
 
 import beam_hop_cases as cases
 import flatnav_tpu.index.search as jsearch
-from flatnav_tpu_torch.index.search import beam_search_core
-from flatnav_tpu_torch.ops import beam_hop
+from flatnav_tpu_torch.index import search as search_mod
+from flatnav_tpu_torch.index.search import batched_search, beam_search_core, table_blocks
+from flatnav_tpu_torch.ops import MetricType, beam_hop
+from flatnav_tpu_torch.quantization import pq as pq_mod
+from flatnav_tpu_torch.utils import profiling
 
 EF, NI, CW = 8, 8, 5
 
@@ -47,8 +56,11 @@ def _jax_blocks(table):
 @pytest.mark.parametrize("max_hops", [1, 2, 0], ids=["hop1", "hop2", "to_the_end"])
 @pytest.mark.parametrize("compact_width", [0, CW], ids=["uncompacted", "compacted"])
 @pytest.mark.parametrize("expand", [1, 4], ids=["E1", "E4"])
-@pytest.mark.parametrize("kind", cases.KINDS)
-def test_chain_matches_jax_hop(kind, expand, compact_width, max_hops, monkeypatch):
+@pytest.mark.parametrize("kind,handed", [
+    *(pytest.param(k, "score_ids", id=k) for k in cases.KINDS),
+    *(pytest.param(k, "every_candidate", id=f"{k}_every_candidate") for k in cases.KINDS),
+])
+def test_chain_matches_jax_hop(kind, handed, expand, compact_width, max_hops, monkeypatch):
     links, table = cases.make(kind)
     kw = dict(ef=EF, num_initializations=NI, max_hops=max_hops, expand_factor=expand,
               compact_width=compact_width)
@@ -59,7 +71,13 @@ def test_chain_matches_jax_hop(kind, expand, compact_width, max_hops, monkeypatc
         jnp.asarray(links), jnp.asarray(cases.N, jnp.int32), cases.B, cases.N, score,
         entry_block=entry, **kw)
     score, entry = cases.torch_blocks(torch.from_numpy(table))
+    hops, scored, record, every_candidate = _recorded_hops(monkeypatch)
+    score = record(score) if handed == "score_ids" else every_candidate(score)
     got = beam_search_core(torch.from_numpy(links), cases.N, cases.B, score, entry, **kw)
+    if handed == "score_ids":  # -1 at exactly the slots that are not fresh
+        assert len(hops) == len(scored) > 0
+        for (nbrs, fresh), ids in zip(hops, scored):
+            assert torch.equal(ids, torch.where(fresh, nbrs, -1))
     np.testing.assert_array_equal(got.dists.view(torch.int32).numpy(),
                                   np.asarray(want.dists).view(np.int32))
     np.testing.assert_array_equal(got.ids.numpy(), np.asarray(want.ids))
@@ -118,3 +136,108 @@ def test_kernels_refuse_cpu_tensors():
         beam_hop.BeamHop(torch.zeros((2, 8)), torch.zeros((2, 8), dtype=torch.int32),
                          torch.ones((2, 8), dtype=torch.bool),
                          torch.full((2, 16), -1, dtype=torch.int32), count, count, e_f=4, m=2)
+
+
+def _recorded_hops(monkeypatch):
+    """Records each hop's candidates and fresh flags as `_membership` gives
+    them. -> (hops [(nbrs, fresh)], scored [ids], record, every_candidate):
+    `record(score)` records the ids the search hands `score`;
+    `every_candidate(score)` scores the hop's candidates themselves in
+    their place, as the search did before it handed its scorer -1."""
+    hops, scored = [], []
+    membership = search_mod._membership
+
+    def recording(*args):
+        nbrs, fresh = membership(*args)
+        hops.append((nbrs.clone(), fresh.clone()))
+        return nbrs, fresh
+
+    monkeypatch.setattr(search_mod, "_membership", recording)
+
+    def record(score):
+        def rec(ids):
+            scored.append(ids.clone())
+            return score(ids)
+
+        return rec
+
+    def every_candidate(score):
+        def full(ids):
+            nbrs, _ = hops[-1]
+            assert nbrs.shape == ids.shape
+            return score(nbrs)
+
+        return full
+
+    return hops, scored, record, every_candidate
+
+
+def _graph(rng, n=300, m=8):
+    return torch.from_numpy(rng.integers(0, n, (n, m)).astype(np.int32))
+
+
+@pytest.mark.parametrize("table", ["float32", "int8", "pq"])
+def test_searches_unchanged_by_score_ids(table, monkeypatch):
+    # every scorer is handed -1 at exactly the slots that are not fresh; the
+    # float table's, the integer table's exact scorer and PQ's ADC scorer
+    # give the same beams, bit for bit, and counters as when they score
+    # every candidate (the integer and PQ scorers read a real row for -1)
+    rng = np.random.default_rng(21)
+    n, d, b = 300, 16, 12
+    links = _graph(rng, n)
+    hops, scored, record, every_candidate = _recorded_hops(monkeypatch)
+    kw = dict(ef=16, num_initializations=8, expand_factor=4)
+    if table == "pq":
+        codes = torch.from_numpy(rng.integers(0, 16, (n, 4)).astype(np.uint8))
+        tables = torch.from_numpy(rng.random((b, 4, 16), dtype=np.float32))
+        core = search_mod.beam_search_core
+        monkeypatch.setattr(pq_mod, "beam_search_core",
+                            lambda lk, nn, bb, score, entry, **k: core(lk, nn, bb, wrap(score),
+                                                                       entry, **k))
+
+        def search():
+            return pq_mod.pq_beam_search(codes, links, n, tables, **kw)
+    else:
+        dtype = np.float32 if table == "float32" else np.int8
+        vectors = torch.from_numpy((rng.standard_normal((n, d)) * 20).astype(dtype))
+        queries = torch.from_numpy((rng.standard_normal((b, d)) * 20).astype(np.float32))
+        score, entry = table_blocks(vectors, queries, MetricType.L2)
+
+        def search():
+            return beam_search_core(links, n, b, wrap(score), entry, **kw)
+
+    wrap = record
+    got = search()
+    assert len(hops) == len(scored) > 1
+    fresh_all = torch.cat([f.flatten() for _, f in hops])
+    assert fresh_all.any() and not fresh_all.all()  # both kinds of slot were there
+    for (nbrs, fresh), ids in zip(hops, scored):
+        assert torch.equal(ids, torch.where(fresh, nbrs, -1))
+    wrap = every_candidate
+    want = search()
+    assert torch.equal(got.dists.view(torch.int32), want.dists.view(torch.int32))
+    assert torch.equal(got.ids, want.ids) and torch.equal(got.expanded, want.expanded)
+    assert (int(got.dist_computations), int(got.hops)) == (int(want.dist_computations),
+                                                         int(want.hops))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int8], ids=["float32", "int8"])
+def test_k2_slot_counters(dtype, monkeypatch):
+    # search.k2_slots counts the slots the hops hand the scorer; the fresh
+    # ones among them are the distance computations less the entry scan's
+    rng = np.random.default_rng(22)
+    n, d, b, ni = 300, 16, 12, 8
+    links = _graph(rng, n)
+    vectors = torch.from_numpy((rng.standard_normal((n, d)) * 20).astype(dtype))
+    queries = torch.from_numpy((rng.standard_normal((b, d)) * 20).astype(dtype))
+    labels = torch.arange(n, dtype=torch.int32)
+    hops, _, _, _ = _recorded_hops(monkeypatch)
+    profiling.snapshot(reset=True)
+    with profiling.tracing():
+        res = batched_search(vectors, links, labels, n, queries, k=5, ef=16,
+                             num_initializations=ni, expand_factor=4)
+    counters = profiling.snapshot(reset=True)["counters"]
+    live = counters["search.dist_computations"] - counters["search.queries"] * (ni + 1)
+    assert counters["search.k2_slots"] == sum(f.numel() for _, f in hops)
+    assert live == sum(int(f.sum()) for _, f in hops) == res.dist_computations - b * (ni + 1)
+    assert 0 < live < counters["search.k2_slots"]

@@ -24,7 +24,9 @@ PyTorch chain give, bit for bit, after every stage of every hop: on the
 corner cases of tests/beam_hop_cases.py, at the graph cells' shapes and at
 shapes whose rows outgrow shared memory (the global-memory workspace); and
 a search or a build must give the same bits whether the hops ran the
-kernels or the chain.
+kernels or the chain. K2, handed the score ids (-1 where a candidate is
+not fresh), must give the search the same bits as when it is handed every
+candidate.
 
 The product-quantized index and the graph reordering hold no kernel of their
 own; their cases run the same call on the card and with device="cpu" at a
@@ -122,6 +124,27 @@ def test_gather_distances_out_of_range_ids_are_nan(cuda, rng, d):
     assert bool(torch.isnan(got[bad_t]).all())
     want = gather_distances_plain(v, i.clamp(0, n - 1), q)
     assert torch.equal(got[~bad_t], want[~bad_t])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [7, 100, 128, 960, 3072])
+def test_gather_distances_score_ids_pack_the_live_rows(cuda, rng, d, dtype):
+    # a hop's score ids: about two thirds -1, the live ids packed ahead of
+    # the block's warps; blocks with nothing live, blocks all live, a ragged
+    # last block. Live slots bit-equal to the plain version, the rest NaN
+    metric = MetricType.IP if d % 2 else MetricType.L2
+    n, b, c = 4000, 11, 3 * 128 + 37
+    v = torch.from_numpy(rng.standard_normal((n, d), dtype=np.float32)).to(cuda, dtype)
+    full = rng.integers(0, n, (b, c)).astype(np.int32)
+    dead = rng.random((b, c)) < 0.68
+    dead[0, :128], dead[1, 128:256] = True, False
+    ids = np.where(dead, -1, full)
+    i = torch.from_numpy(ids).to(cuda)
+    q = torch.from_numpy(rng.standard_normal((b, d), dtype=np.float32)).to(cuda)
+    got = gather_distances(v, i, q, metric)
+    want = gather_distances_plain(v, torch.from_numpy(full).to(cuda), q, metric)
+    live = torch.from_numpy(~dead).to(cuda)
+    assert torch.equal(got[live], want[live]) and bool(torch.isnan(got[~live]).all())
 
 
 @pytest.mark.parametrize("c", [1024, 1021, 1000])
@@ -682,7 +705,8 @@ def _small_index(device, n=3000, d=32, m=16, nq=128):
 @pytest.mark.parametrize("cw", [24, 32, 100])
 def test_gather_distances_at_compact_width(cuda, cw, monkeypatch):
     # K2 is launched at C = compact_width and is bit-equal to its plain
-    # version there; the search agrees with the same search on the CPU
+    # version there at the fresh candidates (NaN at the -1 of the others);
+    # the search agrees with the same search on the CPU
     from flatnav_tpu_torch.index import search as search_mod
     from flatnav_tpu_torch.index.search import batched_search
 
@@ -693,7 +717,9 @@ def test_gather_distances_at_compact_width(cuda, cw, monkeypatch):
     def spy(vectors, ids, queries, metric):
         got = gather_distances(vectors, ids, queries, metric)
         calls.append(ids.shape[1])
-        assert torch.equal(got, gather_distances_plain(vectors, ids, queries, metric))
+        live = ids >= 0
+        want = gather_distances_plain(vectors, ids.clamp_min(0), queries, metric)
+        assert torch.equal(got[live], want[live]) and bool(got[~live].isnan().all())
         return got
 
     monkeypatch.setattr(search_mod, "gather_distances", spy)
@@ -1179,16 +1205,60 @@ def _clustered_graph(cuda, n, d, m, b, seed=3):
     return vectors, queries, links
 
 
-@pytest.mark.parametrize("d,ef,e_f,cw", [(128, 512, 64, 0), (960, 192, 16, 0), (128, 100, 16, 300),
-                                         (32, 1024, 128, 0), (100, 1536, 64, 0)],
-                         ids=["sift_cell", "gist_cell", "wave_compacted", "plan_edge", "glove_cell"])
-def test_beam_hop_kernels_equal_their_stages_at_the_cells_shapes(cuda, d, ef, e_f, cw):
-    from flatnav_tpu_torch.index.search import table_blocks
+@pytest.mark.parametrize("d,ef,e_f,cw,b,metric", [
+    (128, 512, 64, 0, 1000, "l2"), (960, 192, 16, 0, 1000, "l2"), (128, 100, 16, 300, 1000, "l2"),
+    (32, 1024, 128, 0, 1000, "l2"), (100, 1536, 64, 0, 1000, "ip"), (128, 100, 16, 0, 8192, "l2"),
+    (128, 512, 64, 0, 1000, "nan_entry"),
+], ids=["sift_cell", "gist_cell", "wave_compacted", "plan_edge", "glove_cell", "wave",
+        "unordered_beam"])
+def test_beam_hop_kernels_equal_their_stages_at_the_cells_shapes(cuda, d, ef, e_f, cw, b, metric,
+                                                                monkeypatch):
+    # every stage of every hop equal to the chain's, K2 scoring the score ids
+    # on the kernels' route and every candidate on the chain's; then the
+    # search with score ids equal, beam and counters, to the same search
+    # handing K2 every candidate (the hop's own, recorded at membership).
+    # glove100.graph's: unit rows under 1 - <q,x>.
+    # "unordered_beam": a tenth of the queries NaN, so their entry scores NaN
+    # and their beams are out of order, where the merge takes candidates
+    # that are not fresh, with their own ids
+    from flatnav_tpu_torch.index.search import beam_search_core, table_blocks
+    from flatnav_tpu_torch.ops import beam_hop
 
-    vectors, queries, links = _clustered_graph(cuda, 100_000, d, 32, 1000)
-    score, entry = table_blocks(vectors, queries, MetricType.L2)
-    hops, hop = hop_lockstep(links, score, entry, 100_000, 1000, ef=ef, e_f=e_f, cw=cw)
+    n = 100_000
+    vectors, queries, links = _clustered_graph(cuda, n, d, 32, b)
+    kind = MetricType.IP if metric == "ip" else MetricType.L2
+    if metric == "ip":
+        vectors = vectors / torch.linalg.vector_norm(vectors, dim=1, keepdim=True)
+        queries = queries / torch.linalg.vector_norm(queries, dim=1, keepdim=True)
+    if metric == "nan_entry":
+        queries[::10] = float("nan")
+    score, entry = table_blocks(vectors, queries, kind)
+    hops, hop = hop_lockstep(links, score, entry, n, b, ef=ef, e_f=e_f, cw=cw)
     assert hops > 4 and hop.workspace is None  # shared memory holds the cells' rows
+    del hop
+
+    last, membership = [], beam_hop.BeamHop.membership
+
+    def recording(self, nbrs):
+        out = membership(self, nbrs)
+        last[:] = [out[0]]
+        return out
+
+    monkeypatch.setattr(beam_hop.BeamHop, "membership", recording)
+
+    def every_candidate(ids):
+        assert last[0].shape == ids.shape
+        return score(last[0])
+
+    kw = dict(ef=ef, num_initializations=100, expand_factor=e_f, compact_width=cw)
+    got = beam_search_core(links, n, b, score, entry, **kw)
+    want = beam_search_core(links, n, b, every_candidate, entry, **kw)
+    assert _same_bits(got.dists, want.dists) and torch.equal(got.ids, want.ids)
+    assert torch.equal(got.expanded, want.expanded)
+    assert (int(got.dist_computations), int(got.hops)) == (int(want.dist_computations),
+                                                         int(want.hops))
+    if metric == "nan_entry":  # candidates that were not fresh entered the NaN rows' beams
+        assert bool((~torch.isfinite(got.dists[::10]) & (got.ids[::10] != 0)).any())
 
 
 def _chain_only(monkeypatch):

@@ -313,10 +313,14 @@ def test_search_counters_equal_search_results(built):
     with prof.tracing():
         res = batched_search(g.vectors, g.links, g.labels, g.num_nodes, q, k=5, ef=32,
                              expand_factor=4)
-    c = prof.snapshot()["counters"]
-    # the toy search converges well before its hop cap
+    snap = prof.snapshot()
+    c = snap["counters"]
+    # the toy search converges well before its hop cap; K2 is handed B x E*M
+    # slots a hop
+    hop_calls = snap["spans"]["search/search.hop"]["calls"]
     assert c == {"search.queries": len(_Q), "search.hops": res.hops,
-                 "search.dist_computations": res.dist_computations, "search.hop_capped": 0}
+                 "search.dist_computations": res.dist_computations, "search.hop_capped": 0,
+                 "search.k2_slots": hop_calls * len(_Q) * 4 * g.links.shape[1]}
 
 
 @pytest.mark.parametrize("call", ["search", "search_exact", "add"])
