@@ -603,124 +603,88 @@ def _hop_state(b, ef, e_f, m, g, n=1_000_000, again=1 / 3, in_row=True):
     return it, (beam_d, beam_i, beam_e, visited), nbrs, scores
 
 
-def entry_state(entry, n: int, b: int, ef: int, hist_width: int, ni: int = 8):
-    """The beam and history `beam_search_core` starts from: `entry` scores
-    `ni` candidates at a stride of the n ids. -> (beam_d, beam_i, beam_e,
-    history)."""
-    dev = torch.device("cuda")
-    step = max(n // ni, 1)
-    cand = torch.arange(ni, dtype=torch.int32, device=dev) * step
-    ok = cand < n
-    cand = torch.where(ok, cand, 0)
-    d0 = torch.where(ok[None, :], entry(cand), float("inf"))
-    best = d0.argmin(dim=1)
-    beam_d = torch.full((b, ef), float("inf"), device=dev)
-    beam_d[:, 0] = d0.gather(1, best[:, None])[:, 0]
-    beam_i = torch.zeros((b, ef), dtype=torch.int32, device=dev)
-    beam_i[:, 0] = cand[best]
-    beam_e = torch.ones((b, ef), dtype=torch.bool, device=dev)
-    beam_e[:, 0] = False
-    visited = torch.full((b, hist_width), -1, dtype=torch.int32, device=dev)
-    return beam_d, beam_i, beam_e, visited
-
-
 def hop_lockstep(links, score, entry, n: int, b: int, *, ef: int, e_f: int, cw: int = 0,
                  hop_cap: int = 0):
-    """The hop's kernels (`ops.beam_hop.BeamHop`) and its PyTorch chain
-    (index/search.py's `_select`, `_membership`, `_merge`) side by side on
-    the same card inputs, every hop of a search from its entry state
-    (`hop_cap` 0: the search's default): the selected ids and flags, the
-    expanded marks, the history (the kernels keep it sorted), the
-    candidates and fresh flags, the merged beam (distances by their bits),
-    both counters and the end flag must be equal after each stage; a
-    difference raises. The kernels' route scores the score ids, which must
-    be the chain's candidates where fresh and -1 elsewhere, and the chain
-    scores every candidate, as the search did before it handed the scorer
-    score ids. -> (hops run, the kernels' BeamHop)."""
+    """The hop's two engines, `ops.beam_hop.BeamHop` (the kernels) and
+    `ChainHop` (the PyTorch chain), stepped side by side through the same
+    methods on the same card inputs, every hop of a search from its entry
+    state (`index.search.entry_beam` over 8 candidates; `hop_cap` 0: the
+    search's default): after each stage the selection, the candidates, fresh
+    flags and score ids, and the whole state (beam distances by their bits,
+    ids, expanded marks, history, both counters) must be equal, and so must
+    the end test; a difference raises. The kernels' engine scores its score
+    ids, the chain every candidate, as the search did before it handed the
+    scorer score ids. -> (hops run, the kernels' BeamHop)."""
     m = links.shape[1]
     hop_cap = hop_cap or search_mod._hop_cap(ef, e_f)
-    d_c, i_c, e_c, vis = entry_state(entry, n, b, ef, hop_cap * e_f)
-    d_k, i_k, e_k, hist = (t.clone() for t in (d_c, i_c, e_c, vis))
-    dcomp_c, hops_c = torch.zeros((), dtype=torch.int64, device="cuda"), 0
-    dcomp_k, hops_k = (torch.zeros((), dtype=torch.int64, device="cuda") for _ in range(2))
-    hop = beam_hop.BeamHop(d_k, i_k, e_k, hist, dcomp_k, hops_k, e_f=e_f, m=m, compact_width=cw)
-    pos = torch.arange(ef, device="cuda")
+    start = search_mod.entry_beam(entry, n, b, ef, hop_cap * e_f, 8, links.device)
+    chain = beam_hop.ChainHop(*(t.clone() for t in start), e_f=e_f, m=m, compact_width=cw)
+    hop = beam_hop.BeamHop(*start, e_f=e_f, m=m, compact_width=cw)
 
-    def same(ok, what):
-        if not ok:
+    def same(what, *pairs):
+        pairs += tuple((getattr(hop, a), getattr(chain, a)) for a in
+                       ("beam_i", "beam_e", "hist", "dcomp", "hops"))
+        pairs += ((hop.beam_d.view(torch.int32), chain.beam_d.view(torch.int32)),)
+        if not all(torch.equal(x, y) for x, y in pairs):
             raise RuntimeError(f"hop {it}: the kernels' {what} differs from the chain's")
 
     for it in range(hop_cap):
-        e_c, cur_c, sv_c = search_mod._select(i_c, e_c, e_f, pos)
-        cur_k, sv_k = hop.select()
-        same(torch.equal(cur_k, cur_c) and torch.equal(sv_k, sv_c), "selection")
-        same(torch.equal(e_k, e_c), "expanded marks after select")
-        nbrs = links[cur_c.reshape(-1).long()].reshape(b, e_f * m)
-        nb_c, fr_c = search_mod._membership(d_c, i_c, vis, it, cur_c, nbrs, sv_c, m, cw)
+        sel_c, sel_k = chain.select(), hop.select()
+        same("select", *zip(sel_k, sel_c))
+        nbrs = links[sel_c[0].reshape(-1).long()].reshape(b, e_f * m)
+        nb_c, fr_c = chain.membership(nbrs)
         nb_k, fr_k = hop.membership(nbrs)
-        same(torch.equal(hist, vis.sort(dim=1).values), "history")
-        same(torch.equal(nb_k, nb_c) and torch.equal(fr_k, fr_c), "membership")
-        s = score(nb_c)
-        same(torch.equal(hop.score_ids, torch.where(fr_c, nb_c, -1)), "score ids")
-        dcomp_c += fr_c.sum()
-        hops_c += int(sv_c.sum())
-        d_c, i_c, e_c = search_mod._merge((d_c, i_c, e_c), nb_c, fr_c,
-                                          torch.where(fr_c, s, float("inf")), ef)
+        same("membership", (nb_k, nb_c), (fr_k, fr_c), (hop.score_ids, chain.score_ids))
+        chain.merge(score(nb_c), nb_c, it + 1)
         hop.merge(score(hop.score_ids), nb_k, it + 1)
-        same(torch.equal(d_k.view(torch.int32), d_c.view(torch.int32))
-             and torch.equal(i_k, i_c), "merged beam")
-        same(torch.equal(e_k, e_c), "expanded marks after merge")
-        same(int(dcomp_k) == int(dcomp_c) and int(hops_k) == hops_c, "counters")
-        left = bool((~e_c).any())
-        same((int(hop.flag) == it + 1) == left, "end flag")
+        same("merge")
+        left = chain.unexpanded_left()
+        if hop.unexpanded_left() != left:
+            raise RuntimeError(f"hop {it}: the kernels' end test differs from the chain's")
         if not left:
             break
     return it + 1, hop
 
 
 def hop_cases(reps: int, names: list[str]) -> list[dict]:
-    """The hop's bookkeeping by its kernels (`ops.beam_hop`, three
-    launches) and by the PyTorch chain they replace (index/search.py's
-    `_select`, `_membership`, `_merge`, the counters and the end test's
-    reduction), on one mid-search hop's inputs (`_hop_state`); the kernels
-    held bit-equal to the chain first. The select and merge kernels update
-    their state in place, so each of their calls first restores it (copies
-    timed alone as "restore" and taken off their readings)."""
+    """The hop's bookkeeping by its kernels (`ops.beam_hop.BeamHop`, three
+    launches) and by the PyTorch chain they replace (`ChainHop`: its stages
+    and counters, without the end test), on one mid-search hop's inputs
+    (`_hop_state`); the kernels held bit-equal to the chain first. Both
+    engines update their state in place, so each call of a whole hop, a
+    select or a merge first restores it (copies timed alone as "restore" and
+    taken off their readings)."""
     out = []
     for name in names:
         b, ef, e_f, m = HOP_CASES[name]
         g = torch.Generator(device="cuda").manual_seed(0)
         it, (beam_d, beam_i, beam_e, visited), nbrs, scores = _hop_state(b, ef, e_f, m, g)
-        pos = torch.arange(ef, device="cuda")
-
-        def chain():
-            e, cur, sv = search_mod._select(beam_i, beam_e, e_f, pos)
-            nb, fr = search_mod._membership(beam_d, beam_i, visited, it, cur, nbrs, sv, m, 0)
-            nd = torch.where(fr, scores, float("inf"))
-            counts = (fr.sum(), sv.sum())
-            beam = search_mod._merge((beam_d, beam_i, e), nb, fr, nd, ef)
-            return beam, counts, (~beam[2]).any()
-
         start = (beam_d, beam_i, beam_e, visited.sort(dim=1).values)
-        work = [t.clone() for t in start]
-        counts = [torch.zeros((), dtype=torch.int64, device="cuda") for _ in range(2)]
-        hop = beam_hop.BeamHop(*work, *counts, e_f=e_f, m=m)
+        engines = []
+        for engine in (beam_hop.BeamHop, beam_hop.ChainHop):
+            counts = [torch.zeros((), dtype=torch.int64, device="cuda") for _ in range(2)]
+            engines.append(engine(*(t.clone() for t in start), *counts, e_f=e_f, m=m))
+        hop, chain = engines
 
-        def restore():
-            for w, s in zip(work, start):
+        def restore(engine=hop):
+            for s, w in zip(start, (engine.beam_d, engine.beam_i, engine.beam_e, engine.hist)):
                 w.copy_(s)
 
-        hop.select()
-        hop.membership(nbrs)
-        hop.merge(scores, nbrs, 1)
-        (want_d, want_i, want_e), _, _ = chain()
-        if not (torch.equal(work[0].view(torch.int32), want_d.view(torch.int32))
-                and torch.equal(work[1], want_i) and torch.equal(work[2], want_e)):
+        def step(engine):
+            restore(engine)
+            engine.select()
+            nb, _ = engine.membership(nbrs)
+            engine.merge(scores, nb, 1)
+
+        for engine in engines:
+            step(engine)
+        if not (torch.equal(hop.beam_d.view(torch.int32), chain.beam_d.view(torch.int32))
+                and all(torch.equal(getattr(hop, a), getattr(chain, a))
+                        for a in ("beam_i", "beam_e", "hist"))):
             raise RuntimeError(f"hop {name}: the kernels differ from the chain")
         fns = {
-            "chain": chain,
-            "kernels": lambda: (restore(), hop.select(), hop.membership(nbrs),
-                                hop.merge(scores, nbrs, 1)),
+            "chain": lambda: step(chain),
+            "kernels": lambda: step(hop),
             "restore": restore,
             "select": lambda: (restore(), hop.select()),
             "membership": lambda: hop.membership(nbrs),
@@ -728,12 +692,12 @@ def hop_cases(reps: int, names: list[str]) -> list[dict]:
         }
         times = alternate(fns, reps)
         base = sum(times["restore"]) / len(times["restore"])
-        for key in ("kernels", "select", "merge"):
+        for key in ("chain", "kernels", "select", "merge"):
             times[key] = [t - base for t in times[key]]
         bound, by = hop_bound(b, ef, e_f, m, visited.shape[1])
         stage_bounds = hop_stage_bounds(b, ef, e_f, m, visited.shape[1])
         show(f"hop {name}: B={b}, ef={ef}, E={e_f}, M={m}, history {visited.shape[1]}, "
-             f"hop {it} (bit-equal; kernels, select and merge net of restore)",
+             f"hop {it} (bit-equal; chain, kernels, select and merge net of restore)",
              {k: times[k] for k in ("chain", "kernels")}, bound, by)
         print(f"  restore (a copy of the state, taken off): {base:.4f} ms")
         for stage, (stage_bound, stage_by) in stage_bounds.items():

@@ -4,8 +4,8 @@
 //
 // Replaces no TPU kernel. The JAX package leaves these stages to XLA
 // (flatnav_tpu/index/search.py, the loop body of beam_search_core); the port
-// ran them as ~90 PyTorch operations a hop (index/search.py: _select,
-// _membership, _merge), which kept the host launching and the card idle
+// ran them as ~90 PyTorch operations a hop (ops/beam_hop.py: ChainHop, now
+// their plain version), which kept the host launching and the card idle
 // between small operations. Here a row's beam, history and candidates stay
 // in shared memory for the length of a stage.
 //
@@ -13,10 +13,10 @@
 //   select      the first E unexpanded beam positions, marked expanded; their
 //               ids (0 where fewer than E are left) and whether each is
 //               valid. The ids (-1 where not valid) join the row's
-//               expanded-id history, which this route keeps SORTED where
-//               the chain keeps it in hop order and sorts it every hop: E of
-//               its -1 padding entries leave (the slots the chain writes
-//               held -1), the E new values merge in.
+//               expanded-id history, which both engines keep SORTED: E of
+//               its -1 padding entries leave (the chain writes the new
+//               values into them and sorts the row), the E new values
+//               merge in.
 //   membership  a candidate is fresh iff its source was selected, it is the
 //               first occurrence of its id in the row, its id is not one of
 //               the finite-distance beam entries' (the sentinel stands for

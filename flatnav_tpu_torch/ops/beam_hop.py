@@ -1,26 +1,27 @@
-"""The beam-search hop's bookkeeping on the card: select, membership and merge
-(`csrc/beam_hop.cu`), one launch each for the whole batch.
+"""The beam-search hop's bookkeeping: select, membership and merge, behind one
+interface with two engines.
 
-`index/search.py`'s `beam_search_core` takes these wherever its tensors are
-on a CUDA card (`engages`), at every shape: a row's working set stays in
-shared memory where it fits, and in a global-memory workspace of the same
-layout where it does not (ef past ~8,000, or a history of tens of
-thousands of ids). On the CPU it runs its PyTorch chain (`_select`,
-`_membership`, `_merge` there), which is these kernels' plain version: each
-kernel gives its stage's results bit for bit
-(tests/test_torch_kernels_gpu.py). The kernels take CUDA tensors only.
+`make_hop` binds one search's state to an engine: `BeamHop` where the beam
+is on a CUDA card, `ChainHop` elsewhere (the kernel wrappers' rule: on a
+CUDA tensor a wrapper always launches its kernel). `index/search.py`'s
+`beam_search_core` runs one loop over either, at every shape.
 
-A `BeamHop` binds the kernels to one search's state: the beam, the
-expanded-id history and the two counters, which the kernels update in
-place (the chain makes new tensors), and the outputs that every hop
-reuses. The history differs from the chain's in one way: it is kept sorted
-(`select` merges each hop's ids into it), where the chain keeps it in hop
-order and sorts it in every hop's membership test. Both start as all -1.
-The host's work a hop is one ctypes call a stage with pointers taken once.
+`BeamHop` runs each stage as one hand-written kernel for the whole batch
+(`csrc/beam_hop.cu`): a row's working set stays in shared memory where it
+fits, and in a global-memory workspace of the same layout where it does not
+(ef past ~8,000, or a history of tens of thousands of ids). The host's work
+a hop is one ctypes call a stage with pointers taken once. `ChainHop` is its
+plain version, a chain of PyTorch ops on any device; each kernel gives its
+stage's results bit for bit (tests/test_torch_kernels_gpu.py).
 
-Membership also writes the hop's candidates as the scorer gets them, the
-score ids: the id where fresh, -1 elsewhere (K2 loads no row for -1). The
-candidates keep their ids for the merge.
+Both engines update one search's state in place: the beams, the expanded-id
+history, kept ascending (all -1 at the start; each select puts its ids, -1
+where not valid, into E of the row's -1 slots), and the counters of
+distance computations and expansions. After every stage the two hold equal
+tensors. Membership also writes the hop's candidates as the scorer gets
+them, the score ids: the id where fresh, -1 elsewhere (K2 loads no row for
+-1). The candidates keep their ids for the merge. `unexpanded_left` is the
+loop's end test, where the host waits for the card.
 """
 
 from __future__ import annotations
@@ -30,12 +31,18 @@ import ctypes
 import torch
 
 from flatnav_tpu_torch import _build
+from flatnav_tpu_torch.utils.profiling import count
+
+_INT_SENTINEL = 2**31 - 1
 
 
-def engages(device: torch.device) -> bool:
-    """Whether `beam_search_core` runs its hops through these kernels: on a
-    CUDA card, at any shape."""
-    return device.type == "cuda"
+def make_hop(beam_d, beam_i, beam_e, hist, dcomp, hops, *, e_f: int, m: int,
+             compact_width: int = 0):
+    """The hop's engine over one search's state: `BeamHop` where the beam is
+    on a CUDA card, `ChainHop` elsewhere."""
+    engine = BeamHop if beam_i.device.type == "cuda" else ChainHop
+    return engine(beam_d, beam_i, beam_e, hist, dcomp, hops, e_f=e_f, m=m,
+                  compact_width=compact_width)
 
 
 def _pow2(n: int) -> int:
@@ -86,17 +93,20 @@ class BeamHop:
     dcomp, hops: int64 counters. All contiguous, on one card, and updated
     in place. `workspace` is the global-memory stand-in for shared memory
     (None where every stage fits shared memory). `membership` also fills
-    `score_ids`. `BeamHop.launches` counts the kernels' launches."""
+    `score_ids`. `BeamHop.launches` counts the kernels' launches; counter
+    `search.hops_fused` one a merge."""
 
     launches = 0
 
     def __init__(self, beam_d, beam_i, beam_e, hist, dcomp, hops, *, e_f: int, m: int,
                  compact_width: int = 0):
-        for t, dtype in ((beam_d, torch.float32), (beam_i, torch.int32), (beam_e, torch.bool),
-                         (hist, torch.int32), (dcomp, torch.int64), (hops, torch.int64)):
+        state = (beam_d, beam_i, beam_e, hist, dcomp, hops)
+        for t, dtype in zip(state, (torch.float32, torch.int32, torch.bool, torch.int32,
+                                    torch.int64, torch.int64)):
             if not (t.is_cuda and t.dtype == dtype and t.is_contiguous()):
                 raise ValueError(f"BeamHop: wants contiguous CUDA {dtype} tensors, got {t.dtype} "
                                  f"on {t.device}")
+        self.beam_d, self.beam_i, self.beam_e, self.hist, self.dcomp, self.hops = state
         b, ef = beam_i.shape
         em = e_f * m
         cc = compact_width if 0 < compact_width < em else 0
@@ -108,9 +118,10 @@ class BeamHop:
         self.nbrs_out = torch.empty((b, cc), dtype=torch.int32, device=dev) if cc else None
         #: the candidates as the scorer gets them: the id where fresh, -1 elsewhere
         self.score_ids = torch.empty((b, cc or em), dtype=torch.int32, device=dev)
-        #: set to a hop's stamp by its merge where a beam holds an unexpanded entry
-        self.flag = torch.zeros((), dtype=torch.int32, device=dev)
-        self._state = (beam_d, beam_i, beam_e, hist, dcomp, hops)  # the pointers' owners
+        #: set to a hop's stamp by its merge where a beam holds an unexpanded
+        #: entry; stamp 0 stands for the beams the search starts from
+        self.flag = torch.where((~beam_e).any(), 0, -1).to(torch.int32)
+        self.stamp = 0
         lib = _lib()
         w = hist.shape[1]
         with torch.cuda.device(dev):
@@ -120,7 +131,7 @@ class BeamHop:
         self.workspace = torch.empty(b * row, dtype=torch.uint8, device=dev) if row else None
         ws = (self.workspace.data_ptr(), row) if row else (0, 0)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        d, i, e, h, dc, hp = (t.data_ptr() for t in self._state)
+        d, i, e, h, dc, hp = (t.data_ptr() for t in state)
         cur, sv, fr = self.cur_ids.data_ptr(), self.sel_valid.data_ptr(), self.fresh.data_ptr()
         self._select = (lib.beam_select_launch, (i, e, h, b, ef, e_f, w, cur, sv, hp, *ws, stream))
         self._member = (lib.beam_membership_launch, (d, i, h), (
@@ -158,12 +169,12 @@ class BeamHop:
         return (self.nbrs_out if self.cc else nbrs), self.fresh
 
     def merge(self, scores: torch.Tensor, nbrs: torch.Tensor, stamp: int) -> None:
-        """Merges the scored candidates (`scores` where `fresh`, +inf
-        elsewhere; `nbrs` and `fresh` as `membership` returned them) into
-        the beams: the first ef of beam and new entries by distance, beam
-        entries first on ties, new ones by position. `dcomp` adds the fresh
-        count; `flag` is set to `stamp` where a new beam holds an
-        unexpanded entry."""
+        """Merges the scored candidates (`scores`, read where `fresh`; `nbrs`
+        and `fresh` as `membership` returned them) into the beams: the first
+        ef of beam and new entries by distance, beam entries first on ties,
+        new ones by position. `dcomp` adds the fresh count; `flag` is set to
+        `stamp` (> 0, a new one a hop) where a new beam holds an unexpanded
+        entry."""
         if scores.dtype != torch.float32 or not scores.is_contiguous():
             scores = scores.to(torch.float32).contiguous()
         if scores.shape != self.fresh.shape or nbrs.shape != self.fresh.shape:
@@ -173,6 +184,106 @@ class BeamHop:
         rc = fn(*head, scores.data_ptr(), nbrs.data_ptr(), *tail, stamp, *last)
         _build.check(rc, "BeamHop.merge")
         BeamHop.launches += 1
+        self.stamp = stamp
+        count("search.hops_fused", 1)
+
+    def unexpanded_left(self) -> bool:
+        """Whether some beam still holds an unexpanded entry after the last
+        merge (one scalar copy from the card)."""
+        return int(self.flag) == self.stamp
 
 
-__all__ = ["BeamHop", "engages", "scratch_row", "stage_bytes"]
+def _first_occurrence(ids: torch.Tensor) -> torch.Tensor:
+    """Mask of the first occurrence of each value per row ([B, C] -> bool):
+    a stable sort makes duplicates adjacent, lowest position first."""
+    order = torch.argsort(ids, dim=1, stable=True)
+    sorted_ids = ids.gather(1, order)
+    first = torch.ones_like(ids, dtype=torch.bool)
+    first[:, 1:] = sorted_ids[:, 1:] != sorted_ids[:, :-1]
+    return torch.empty_like(first).scatter_(1, order, first)
+
+
+def _sorted_member(sorted_tab: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Row-wise membership of x [B, C] in sorted_tab [B, W] (ascending)."""
+    w = sorted_tab.shape[1]
+    pos = torch.searchsorted(sorted_tab, x.contiguous())
+    hit = sorted_tab.gather(1, pos.clamp(max=w - 1))
+    return (pos < w) & (hit == x)
+
+
+class ChainHop:
+    """The plain version of `BeamHop`: the same state, methods and results,
+    as a chain of PyTorch ops on any device. Membership tests run as sorted
+    lookups (`torch.searchsorted`) and the in-hop dedup is sort based; the
+    merge is a stable sort with beam entries first on ties (the JAX
+    package's compare forms and rank-and-gather merge give the same bits)."""
+
+    def __init__(self, beam_d, beam_i, beam_e, hist, dcomp, hops, *, e_f: int, m: int,
+                 compact_width: int = 0):
+        self.beam_d, self.beam_i, self.beam_e, self.hist = beam_d, beam_i, beam_e, hist
+        self.dcomp, self.hops = dcomp, hops
+        self.e_f, self.m = e_f, m
+        self.cc = compact_width if 0 < compact_width < e_f * m else 0
+        self.pos = torch.arange(beam_i.shape[1], device=beam_i.device)
+        self.new_slots = torch.arange(e_f, device=beam_i.device)
+        self.sel_valid = self.fresh = self.score_ids = None
+
+    def select(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """`BeamHop.select`: the history's E slots of -1 that follow any
+        lower ids take this hop's ids, and the row is sorted again."""
+        ef, e_f, pos = self.pos.shape[0], self.e_f, self.pos
+        unexp = ~self.beam_e
+        if e_f == 1:
+            sel = unexp.to(torch.int8).argmax(dim=1, keepdim=True)
+            sel_valid = unexp.any(dim=1, keepdim=True)
+        else:
+            cand_pos = torch.where(unexp, pos, ef)
+            sel = torch.topk(cand_pos, e_f, dim=1, largest=False).values
+            sel_valid = sel < ef
+        sel = sel.clamp(max=ef - 1)
+        cur_ids = torch.where(sel_valid, self.beam_i.gather(1, sel), 0)
+        self.beam_e |= ((pos[None, :, None] == sel[:, None, :]) & sel_valid[:, None, :]).any(2)
+        first_free = (self.hist < -1).sum(dim=1, keepdim=True)
+        self.hist.scatter_(1, first_free + self.new_slots, torch.where(sel_valid, cur_ids, -1))
+        self.hist.copy_(self.hist.sort(dim=1).values)
+        self.hops += sel_valid.sum()
+        self.sel_valid = sel_valid
+        return cur_ids, sel_valid
+
+    def membership(self, nbrs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """`BeamHop.membership`; the compact width's fresh-first order is a
+        stable sort on "not fresh"."""
+        valid_src = self.sel_valid.repeat_interleave(self.m, dim=1)
+        beam_tab = torch.where(torch.isfinite(self.beam_d), self.beam_i, _INT_SENTINEL)
+        in_beam = _sorted_member(beam_tab.sort(dim=1).values, nbrs)
+        in_hist = _sorted_member(self.hist, nbrs)
+        fresh = ~(in_beam | in_hist) & valid_src & _first_occurrence(nbrs)
+        if self.cc:
+            order = torch.argsort((~fresh).to(torch.int8), dim=1, stable=True)[:, : self.cc]
+            nbrs = nbrs.gather(1, order)
+            fresh = fresh.gather(1, order)
+        self.fresh = fresh
+        self.score_ids = torch.where(fresh, nbrs, -1)
+        return nbrs, fresh
+
+    def merge(self, scores: torch.Tensor, nbrs: torch.Tensor, stamp: int) -> None:
+        """`BeamHop.merge`: the new entries (+inf where not fresh) sorted
+        stably, ef of them kept and merged into the beams."""
+        ef = self.pos.shape[0]
+        nd = torch.where(self.fresh, scores, float("inf"))
+        order = torch.argsort(nd, dim=1, stable=True)[:, :ef]
+        new = (nd.gather(1, order), nbrs.gather(1, order), (~self.fresh).gather(1, order))
+        beam = (self.beam_d, self.beam_i, self.beam_e)
+        all_d, all_i, all_e = (torch.cat(p, dim=1) for p in zip(beam, new))
+        order = torch.argsort(all_d, dim=1, stable=True)[:, :ef]
+        for t, a in zip(beam, (all_d, all_i, all_e)):
+            t.copy_(a.gather(1, order))
+        self.dcomp += self.fresh.sum()
+
+    def unexpanded_left(self) -> bool:
+        """Whether some beam still holds an unexpanded entry (a reduction
+        and one scalar copy)."""
+        return bool((~self.beam_e).any())
+
+
+__all__ = ["BeamHop", "ChainHop", "make_hop", "scratch_row", "stage_bytes"]

@@ -1,6 +1,6 @@
-"""The beam-search hop's PyTorch chain (index/search.py: `_select`,
-`_membership`, `_merge`), which the hop's CUDA kernels (csrc/beam_hop.cu)
-reproduce bit for bit on the card, held to the JAX package's hop on the CPU.
+"""The beam-search hop's PyTorch chain (ops/beam_hop.py: `ChainHop`), which
+the hop's CUDA kernels (csrc/beam_hop.cu, `BeamHop`) reproduce bit for bit on
+the card, held to the JAX package's hop on the CPU.
 
 Both packages search the same synthetic graph with the same per-query
 distance table (tests/beam_hop_cases.py), built to reach the hop's corner
@@ -22,6 +22,8 @@ scores every candidate instead, as the search did before ("_every_candidate"):
 both must give the JAX hop's beams. The integer table's and PQ's searches
 are held, on recorded hops, to the same searches scoring every candidate.
 """
+
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -117,12 +119,19 @@ H100_SMEM = 227 * 1024 - 40
     ((512, 256, 32, 16 * 256), False),  # E*M past shared memory (membership's sets)
     ((512, 64, 32, 400 * 64), False),  # a history past shared memory (max_hops 400)
 ])
-def test_kernels_engage_on_the_card_within_their_plan(shape, fits):
+def test_kernels_engage_on_the_card_within_their_plan(shape, fits, monkeypatch):
     # the kernels run every shape on the card: a row's working set in shared
-    # memory where it fits, else in a global-memory workspace
+    # memory where it fits, else in a global-memory workspace. `make_hop`
+    # picks them by the beam's device (the kernels' engine stood in for
+    # here, since it wants a card), the chain elsewhere
     ef, e_f, m, hist = shape
-    assert beam_hop.engages(torch.device("cuda"))
-    assert not beam_hop.engages(torch.device("cpu"))
+    state = search_mod.entry_beam(lambda cand: torch.zeros((2, cand.shape[0])), 1000, 2, ef,
+                                  hist, 8, "cpu")
+    assert type(beam_hop.make_hop(*state, e_f=e_f, m=m)) is beam_hop.ChainHop
+    monkeypatch.setattr(beam_hop, "BeamHop", lambda *state, **kw: ("kernels", kw))
+    on_card = SimpleNamespace(device=torch.device("cuda"))
+    assert beam_hop.make_hop(*[on_card] * 6, e_f=e_f, m=m) == (
+        "kernels", dict(e_f=e_f, m=m, compact_width=0))
     row = beam_hop.scratch_row(ef, e_f, m, hist, H100_SMEM)
     assert (row == 0) is fits
     if not fits:
@@ -139,20 +148,20 @@ def test_kernels_refuse_cpu_tensors():
 
 
 def _recorded_hops(monkeypatch):
-    """Records each hop's candidates and fresh flags as `_membership` gives
-    them. -> (hops [(nbrs, fresh)], scored [ids], record, every_candidate):
+    """Records each hop's candidates and fresh flags as `ChainHop.membership`
+    gives them. -> (hops [(nbrs, fresh)], scored [ids], record, every_candidate):
     `record(score)` records the ids the search hands `score`;
     `every_candidate(score)` scores the hop's candidates themselves in
     their place, as the search did before it handed its scorer -1."""
     hops, scored = [], []
-    membership = search_mod._membership
+    membership = beam_hop.ChainHop.membership
 
-    def recording(*args):
-        nbrs, fresh = membership(*args)
+    def recording(self, nbrs):
+        nbrs, fresh = membership(self, nbrs)
         hops.append((nbrs.clone(), fresh.clone()))
         return nbrs, fresh
 
-    monkeypatch.setattr(search_mod, "_membership", recording)
+    monkeypatch.setattr(beam_hop.ChainHop, "membership", recording)
 
     def record(score):
         def rec(ids):
@@ -170,6 +179,35 @@ def _recorded_hops(monkeypatch):
         return full
 
     return hops, scored, record, every_candidate
+
+
+@pytest.mark.parametrize("compact_width", [0, CW], ids=["uncompacted", "compacted"])
+def test_chain_hop_stepped_by_hand_gives_the_search(compact_width):
+    # the engine's interface as bench/kernel_ab.hop_lockstep drives it: the
+    # entry state, then select, the links gather, membership, scoring the
+    # score ids and merge until the end test fails, give `beam_search_core`'s
+    # results bit for bit
+    links, table = cases.make("dups")
+    links = torch.from_numpy(links)
+    score, entry = cases.torch_blocks(torch.from_numpy(table))
+    e_f, hop_cap = 4, search_mod._hop_cap(EF, 4)
+    hop = beam_hop.ChainHop(
+        *search_mod.entry_beam(entry, cases.N, cases.B, EF, hop_cap * e_f, NI, "cpu"),
+        e_f=e_f, m=cases.M, compact_width=compact_width)
+    it = slots = 0
+    while it < hop_cap and hop.unexpanded_left():
+        cur_ids, _ = hop.select()
+        nbrs, _ = hop.membership(links[cur_ids.reshape(-1).long()].reshape(cases.B, -1))
+        slots += hop.score_ids.numel()
+        hop.merge(score(hop.score_ids), nbrs, it + 1)
+        it += 1
+    want = beam_search_core(links, cases.N, cases.B, score, entry, ef=EF, num_initializations=NI,
+                            expand_factor=e_f, compact_width=compact_width)
+    assert it > 1 and torch.equal(hop.hist, hop.hist.sort(dim=1).values)
+    assert torch.equal(hop.beam_d.view(torch.int32), want.dists.view(torch.int32))
+    assert torch.equal(hop.beam_i, want.ids) and torch.equal(hop.beam_e, want.expanded)
+    assert (int(hop.dcomp), int(hop.hops), slots) == (
+        int(want.dist_computations), int(want.hops), want.slots)
 
 
 def _graph(rng, n=300, m=8):

@@ -1159,8 +1159,7 @@ def test_beam_hop_kernels_equal_their_stages_every_hop(cuda, kind, e_f, cw):
 def test_beam_hop_merge_orders_as_torch_sort(cuda, ef, c):
     # beams out of order, NaN in the beam and among the new distances,
     # -0.0 beside +0.0, +inf, rows with nothing fresh (in order and not)
-    from flatnav_tpu_torch.index import search as S
-    from flatnav_tpu_torch.ops.beam_hop import BeamHop
+    from flatnav_tpu_torch.ops.beam_hop import BeamHop, ChainHop
 
     g = torch.Generator(device=cuda).manual_seed(ef + c)
     vals = torch.tensor([-0.0, 0.0, 0.5, 1.0, float("inf"), float("nan")], device=cuda)
@@ -1179,17 +1178,21 @@ def test_beam_hop_merge_orders_as_torch_sort(cuda, ef, c):
     nbrs = torch.randint(-1, 1000, (b, c), device=cuda, generator=g, dtype=torch.int32)
     fresh = torch.rand((b, c), device=cuda, generator=g) < 0.3
     fresh[: b // 2 : 2] = False  # nothing fresh
-    want = S._merge((beam_d, beam_i, beam_e), nbrs, fresh, torch.where(fresh, s, float("inf")), ef)
     dcomp = torch.zeros((), dtype=torch.int64, device=cuda)
     hist = torch.full((b, c), -1, dtype=torch.int32, device=cuda)
     # a hop of c candidates: one expansion of c links
-    hop = BeamHop(beam_d, beam_i, beam_e, hist, dcomp, dcomp.clone(), e_f=1, m=c)
+    state = (beam_d, beam_i, beam_e, hist, dcomp, dcomp.clone())
+    want = ChainHop(*(t.clone() for t in state), e_f=1, m=c)
+    want.fresh = fresh
+    want.merge(s, nbrs, 7)
+    hop = BeamHop(*state, e_f=1, m=c)
     hop.fresh.copy_(fresh)
     hop.merge(s, nbrs, 7)
-    assert _same_bits(beam_d, want[0]) and torch.equal(beam_i, want[1])
-    assert torch.equal(beam_e, want[2])
-    assert int(dcomp) == int(fresh.sum())
-    assert int(hop.flag) == (7 if bool((~want[2]).any()) else 0)
+    assert _same_bits(beam_d, want.beam_d) and torch.equal(beam_i, want.beam_i)
+    assert torch.equal(beam_e, want.beam_e)
+    assert int(dcomp) == int(want.dcomp) == int(fresh.sum())
+    assert int(hop.flag) == (7 if want.unexpanded_left() else 0)
+    assert hop.unexpanded_left() == want.unexpanded_left()
 
 
 def _clustered_graph(cuda, n, d, m, b, seed=3):
@@ -1264,7 +1267,7 @@ def test_beam_hop_kernels_equal_their_stages_at_the_cells_shapes(cuda, d, ef, e_
 def _chain_only(monkeypatch):
     from flatnav_tpu_torch.ops import beam_hop
 
-    monkeypatch.setattr(beam_hop, "engages", lambda *args: False)
+    monkeypatch.setattr(beam_hop, "make_hop", beam_hop.ChainHop)
 
 
 @pytest.mark.parametrize("d,ef,e_f", [(128, 512, 64), (960, 192, 16)], ids=["sift", "gist"])
