@@ -52,8 +52,13 @@ Phases, in order; any failure raises and the script exits nonzero:
      K3's warp route at that build selection (its own entry in the kernels
      line, "select_k warp", with the warp route's launches). The hop's
      kernels (csrc/beam_hop.cu) must have run three launches a hop in the
-     build and in both searches (BeamHop.launches zeroed before each, read
-     after). Then, on the main path's graph, each is held against its
+     build and in both searches, and two more for each search loop that
+     stopped before its hop cap (the select and membership of the hop it
+     opens past its end): BeamHop.launches zeroed before each step, read
+     after, against the hops that every loop (`index.search._late_hops`)
+     issued; a replayed CUDA graph adds the launches it captured. The build's
+     waves run eagerly; each search replays graphs from its second
+     sub-batch on. Then, on the main path's graph, each is held against its
      PyTorch stage at every hop of a search at the graph cells' shapes
      (1,000 queries at ef 512 / E 64 and ef 192 / E 16; ef 192 / E 64
      compacted to 512; a build wave of 8,192 rows at ef 100 / E 16):
@@ -547,6 +552,15 @@ def phase_main_path():
     # a build wave's intra-wave selection (K3's warp route), its 10th
     build_sel_rec = CallRecorder(build_mod.smallest_k, nth=10)
     search_mod.gather_distances = hop_rec
+    late_hops = search_mod._late_hops
+    loops = []  # (hops issued, hop cap, replayed) of each search loop since the last clear
+
+    def late_spy(hops, hop_cap):
+        issued = late_hops(hops, hop_cap)
+        loops.append((issued, hop_cap, isinstance(hops, search_mod._HopGraphs)))
+        return issued
+
+    search_mod._late_hops = late_spy
     fused_mod.scan_buckets = scan_rec
     fused_mod.smallest_k = phase_b_rec
     build_mod.smallest_k = build_sel_rec
@@ -572,6 +586,7 @@ def phase_main_path():
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         BeamHop.launches = 0
+        loops.clear()
         index = flatnav_tpu_torch.index.create(
             "l2", dim=d, dataset_size=n, max_edges_per_node=m, device="cuda"
         )
@@ -579,6 +594,7 @@ def phase_main_path():
         torch.cuda.synchronize()
         out["build_s"] = time.perf_counter() - t0
         hop_launches = {"build": BeamHop.launches}  # the hop's kernels by step
+        hop_loops = {"build": list(loops)}  # ... and the step's search loops
         k3["build"] = select_k.launches - k3["brute_force_knn"]
         k3_routes["build"] = routes_since(routes_before)
         out["build_peak"] = device_memory_stats()["peak_bytes_in_use"]
@@ -594,8 +610,10 @@ def phase_main_path():
             return dist, lab
 
         BeamHop.launches = 0
+        loops.clear()
         d1, l1 = run("graph", lambda: index.search(queries, K=k, ef_search=ef))
         hop_launches["search"] = BeamHop.launches
+        hop_loops["search"] = list(loops)
         before, routes_before = select_k.launches, dict(select_k.routes)
         run("exact", lambda: index.search_exact(queries, K=k))
         run("fused", lambda: index.search_exact(queries, K=k, rerank=32))
@@ -607,9 +625,11 @@ def phase_main_path():
             index.save(path)
             index2 = flatnav_tpu_torch.index.load_index(path, device="cuda")
         BeamHop.launches = 0
+        loops.clear()
         d2, l2 = index2.search(queries, K=k, ef_search=ef)
         torch.cuda.synchronize()
         hop_launches["reloaded search"] = BeamHop.launches
+        hop_loops["reloaded search"] = list(loops)
         launches = {"gather_distances": gather_distances.launches,
                     "beam_hop": sum(hop_launches.values()), "beam_hop by step": hop_launches,
                     "scan_buckets": scan_buckets.launches,
@@ -619,6 +639,7 @@ def phase_main_path():
                     "select_k by step and route": k3_routes}
     finally:
         search_mod.gather_distances = gather_distances
+        search_mod._late_hops = late_hops
         fused_mod.scan_buckets = scan_buckets
         fused_mod.smallest_k = phase_b_rec.fn
         build_mod.smallest_k = build_sel_rec.fn
@@ -631,8 +652,16 @@ def phase_main_path():
         print(f"  {name}: recall@10 {r['recall']:.4f}  qps {r['qps']:.1f}  ({r['s']:.3f} s)")
     print(f"  launches on the main path: {launches}")
     check(launches["gather_distances"] > 0 and launches["scan_buckets"] > 0, "kernel launches")
-    check(all(v > 0 and v % 3 == 0 for v in hop_launches.values()),
-          f"the hop's three kernels ran every hop of the build and the searches: {hop_launches}")
+    hop_want = {step: sum(3 * n + 2 * (n < cap) for n, cap, _ in lp)
+                for step, lp in hop_loops.items()}
+    replays = {step: sum(n for n, _, graphed in lp if graphed) for step, lp in hop_loops.items()}
+    print(f"  hop launches by step {hop_launches}, from the loops' hops {hop_want}; "
+          f"hops replayed {replays}")
+    check(all(v > 0 for v in hop_launches.values()) and hop_launches == hop_want,
+          f"the hop's kernels ran three launches a hop, two more a loop stopped before its cap, "
+          f"in the build and the searches: {hop_launches} against {hop_want}")
+    check(replays["build"] == 0 and replays["search"] > 0 and replays["reloaded search"] > 0,
+          f"the build's waves eager, each search replaying graphs: {replays}")
     check(all(v > 0 for v in k3.values()),
           "K3 launched in brute_force_knn, the build and search_exact")
     check(launches["scan_buckets variants"]["wgmma"] == launches["scan_buckets"],

@@ -85,6 +85,23 @@ object. Then K2 at the three cells' hops (`k2_hop_cases`): on the hop's
 full candidate ids and on its score ids (-1 where not fresh), with the
 cell's share of fresh candidates, rows and d; with `--baseline`, the other
 version's K2 on both too. The next line is those cases as one JSON object.
+Then a hop issued as the search issued it before its hop was captured (the
+kernels' select, `torch.index_select` of a random links table, membership
+and merge: four launches from the host, and the end test's flag read)
+against one replay of the captured hop (`index.search._HopGraphs`' step:
+the merge, which also stamps the host's copy of the flag, then the next
+hop's select, links gather and membership), at the four shapes (`hop_graph_cases`): the host's
+time to issue each and the card's time to run it (CUDA events, the card held
+by a spin kernel while the host issues, so its reading has no gap), held
+bit-equal first. Its line is one JSON object. Then whole searches in
+sequences of requests whose shapes change (`hop_policy_cases`, on a 100,000
+x 128 clustered index at sift1m.graph's ef 512 / E 64): 1- to 16-query
+requests ("mixed"), 1,000-query requests that the memory guard splits
+into 300, 300, 300 and 100 ("split") and 1,000-query requests ("fixed"),
+each as the search runs them (a shape captured the second time in a row
+that the card searches it, one kept) against the eager loop alone; wall
+ms a request, the card synchronised after each, and the shapes captured.
+Its line is one JSON object.
 `hop_lockstep` holds the kernels to the chain after every stage of every
 hop of a whole search (the `gpu` tests and chip_smoke.py call it).
 Needs a CUDA card; exits 2 without one.
@@ -99,6 +116,7 @@ import json
 import re
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -635,12 +653,12 @@ def hop_lockstep(links, score, entry, n: int, b: int, *, ef: int, e_f: int, cw: 
         nb_c, fr_c = chain.membership(nbrs)
         nb_k, fr_k = hop.membership(nbrs)
         same("membership", (nb_k, nb_c), (fr_k, fr_c), (hop.score_ids, chain.score_ids))
-        chain.merge(score(nb_c), nb_c, it + 1)
-        hop.merge(score(hop.score_ids), nb_k, it + 1)
+        chain.merge(score(nb_c), nb_c)
+        hop.merge(score(hop.score_ids), nb_k)
         same("merge")
-        left = chain.unexpanded_left()
-        if hop.unexpanded_left() != left:
-            raise RuntimeError(f"hop {it}: the kernels' end test differs from the chain's")
+        left = chain.unexpanded_after(it + 1)
+        if hop.unexpanded_after(it + 1) != left or int(hop.flag) != int(chain.flag):
+            raise RuntimeError(f"hop {it}: the kernels' end flag differs from the chain's")
         if not left:
             break
     return it + 1, hop
@@ -674,7 +692,7 @@ def hop_cases(reps: int, names: list[str]) -> list[dict]:
             restore(engine)
             engine.select()
             nb, _ = engine.membership(nbrs)
-            engine.merge(scores, nb, 1)
+            engine.merge(scores, nb)
 
         for engine in engines:
             step(engine)
@@ -688,7 +706,7 @@ def hop_cases(reps: int, names: list[str]) -> list[dict]:
             "restore": restore,
             "select": lambda: (restore(), hop.select()),
             "membership": lambda: hop.membership(nbrs),
-            "merge": lambda: (restore(), hop.merge(scores, nbrs, 1)),
+            "merge": lambda: (restore(), hop.merge(scores, nbrs)),
         }
         times = alternate(fns, reps)
         base = sum(times["restore"]) / len(times["restore"])
@@ -708,6 +726,189 @@ def hop_cases(reps: int, names: list[str]) -> list[dict]:
                     **{f"{k}_bound_ms": v for k, (v, _) in stage_bounds.items()},
                     **{f"{k}_ms": v for k, v in mean.items()}})
         torch.cuda.empty_cache()
+    return out
+
+
+def _issued(prepare, issue, reps: int) -> tuple[list[float], list[float]]:
+    """(host ms to issue, card ms to run it) of `issue()` in `reps` readings,
+    each after `prepare()` has run and the card is idle. A spin kernel holds
+    the card while the host issues, so the card's reading is the work alone,
+    back to back."""
+    host, card_ms = [], []
+    for _ in range(reps + 1):  # the first, a warm-up, is dropped
+        prepare()
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(4_000_000)  # ~2 ms at the H100's clocks
+        e0.record()
+        t0 = time.perf_counter()
+        issue()
+        host.append((time.perf_counter() - t0) * 1e3)
+        e1.record()
+        e1.synchronize()
+        card_ms.append(e0.elapsed_time(e1))
+    return host[1:], card_ms[1:]
+
+
+def hop_graph_cases(reps: int, names: list[str]) -> list[dict]:
+    """A hop issued launch by launch against one replay of the captured hop
+    (module docstring), on `_hop_state`'s mid-search hop over a random links
+    table of 1,000,000 rows: bit-equal first (the eager hop against the
+    graphs' head and tail), then `reps` readings of each."""
+    out = []
+    for name in names:
+        b, ef, e_f, m = HOP_CASES[name]
+        g = torch.Generator(device="cuda").manual_seed(2)
+        _, (beam_d, beam_i, beam_e, visited), _, scores = _hop_state(b, ef, e_f, m, g)
+        links = torch.randint(0, 1_000_000, (1_000_000, m), device="cuda", generator=g,
+                              dtype=torch.int32)
+        start = (beam_d, beam_i, beam_e, visited.sort(dim=1).values)
+        counts = [torch.zeros((), dtype=torch.int64, device="cuda") for _ in range(2)]
+        eager = beam_hop.BeamHop(*(t.clone() for t in start), *counts, e_f=e_f, m=m)
+        nbr_rows = torch.empty((b * e_f, m), dtype=torch.int32, device="cuda")
+        graphs = search_mod._HopGraphs(None, links, b, ef, e_f, visited.shape[1], 0)
+        graphs.scores.copy_(scores)
+
+        def restore(state):
+            for s, w in zip(start, state):
+                w.copy_(s)
+
+        def eager_hop():
+            cur, _ = eager.select()
+            nb = torch.index_select(links, 0, cur.view(-1), out=nbr_rows).view(b, -1)
+            cand, _ = eager.membership(nb)
+            eager.merge(scores, cand)
+
+        def graph_start():
+            restore(graphs.state)
+            graphs.hop.restart()
+            graphs.head()
+
+        eager_state = (eager.beam_d, eager.beam_i, eager.beam_e, eager.hist)
+        eager_hop()
+        graph_start()
+        graphs.step(last=True)
+        got = graphs.state
+        if not (torch.equal(eager.beam_d.view(torch.int32), got[0].view(torch.int32))
+                and all(torch.equal(x, y) for x, y in zip(eager_state[1:], got[1:4]))):
+            raise RuntimeError(f"hop {name}: the replayed hop differs from the eager one")
+        times = {}
+        for turn in range(2):  # eager, graph; then graph, eager
+            for kind in ("eager", "graph")[::1 - 2 * turn]:
+                if kind == "eager":
+                    h, c = _issued(lambda: restore(eager_state), eager_hop, reps)
+                else:
+                    h, c = _issued(graph_start, lambda: graphs.step(last=False), reps)
+                times.setdefault(kind, ([], []))
+                times[kind][0].extend(h)
+                times[kind][1].extend(c)
+        end_host = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eager.unexpanded_after(1)
+            end_host.append((time.perf_counter() - t0) * 1e3)
+        mean = {k: (sum(h) / len(h), sum(c) / len(c)) for k, (h, c) in times.items()}
+        print(f"hop {name} issued: B={b}, ef={ef}, E={e_f}, M={m} (the replay bit-equal to the "
+              f"eager hop); host ms to issue / card ms to run")
+        for kind, (h, c) in mean.items():
+            print(f"  {kind:>6}: host {h:.4f} ms, card {c:.4f} ms (host readings "
+                  f"{', '.join(f'{t:.4f}' for t in times[kind][0])})")
+        end = sum(end_host) / len(end_host)
+        print(f"  eager end test (the flag's read, card idle): host {end:.4f} ms")
+        out.append({"case": name, "b": b, "ef": ef, "e": e_f, "m": m,
+                    "eager_host_ms": mean["eager"][0], "eager_card_ms": mean["eager"][1],
+                    "graph_host_ms": mean["graph"][0], "graph_card_ms": mean["graph"][1],
+                    "eager_end_test_host_ms": end})
+        del links, graphs, eager, nbr_rows
+        torch.cuda.empty_cache()
+    return out
+
+
+#: sequences of requests for `hop_policy_cases`: label -> (requests, query
+#: counts: a list or (low, high) drawn per request, the guard's sub-batch)
+HOP_POLICY_CASES = {"mixed": (96, (1, 16), 0), "split": (12, [1000], 300),
+                    "fixed": (12, [1000], 0)}
+
+
+def hop_policy_cases(reps: int) -> list[dict]:
+    """Each `HOP_POLICY_CASES` sequence of searches (`batched_search`, k 10,
+    ef 512, E 64 over a 100,000 x 128 clustered index, M 32) as the search
+    runs it against the eager loop alone (`index.search._hop_graphs` giving
+    None), in turns policy, eager, eager, policy, `reps` // 5 + 1 times,
+    each turn from no kept hop; wall ms a request with the card synchronised
+    after each (a request's answers are read on the host), apart for each
+    turn's first request and the rest, and the graphs the policy captured
+    (three a shape)."""
+    import flatnav_tpu_torch
+    from flatnav_tpu_torch.bench.synth import clustered
+
+    n, d = 100_000, 128
+    data, q = clustered(n, d, 1000, seed=11, centers_per_64k=26)
+    ix = flatnav_tpu_torch.index.create("l2", d, n, 32)
+    ix.add(data, ef_construction=100)
+    g = ix.graph
+    queries = torch.from_numpy(q).cuda()
+    rng = np.random.default_rng(3)
+    real_graphs, real_guard, real_capture = (search_mod._hop_graphs, search_mod.safe_query_batch,
+                                             search_mod._capture)
+    captured = [0]
+
+    def counting(*args):
+        captured[0] += 1
+        return real_capture(*args)
+
+    out = []
+    try:
+        search_mod._capture = counting
+        for name, (requests, sizes, sub) in HOP_POLICY_CASES.items():
+            counts = (rng.integers(sizes[0], sizes[1] + 1, requests) if isinstance(sizes, tuple)
+                      else np.resize(sizes, requests))
+            search_mod.safe_query_batch = ((lambda b, *a, sub=sub, **k: min(b, sub)) if sub
+                                           else real_guard)
+            times, firsts, shapes = {"policy": [], "eager": []}, {"policy": [], "eager": []}, []
+            for turn in range(reps // 5 + 1):
+                for kind in ("policy", "eager")[::1 - 2 * (turn % 2)]:
+                    search_mod.release_hop_graphs()
+                    search_mod._LAST_KEY.clear()
+                    search_mod._hop_graphs = real_graphs if kind == "policy" else (
+                        lambda *a, **k: None)
+                    captured[0] = 0
+                    for i, c in enumerate(counts):
+                        lo = (i * 37) % (len(q) - int(c) + 1)
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        search_mod.batched_search(g.vectors, g.links, g.labels, g.num_nodes,
+                                                  queries[lo: lo + int(c)], k=10, ef=512,
+                                                  expand_factor=64)
+                        torch.cuda.synchronize()
+                        (times if i else firsts)[kind].append((time.perf_counter() - t0) * 1e3)
+                    if kind == "policy":
+                        shapes.append(captured[0] // 3)
+            every = {k: firsts[k] + times[k] for k in times}
+            mean = {k: sum(t) / len(t) for k, t in every.items()}
+            med = {k: float(np.median(t)) for k, t in every.items()}
+            rest = {k: sum(t) / len(t) for k, t in times.items()}
+            print(f"hop policy {name}: {requests} requests of {sizes} queries"
+                  f"{f', split at {sub}' if sub else ''}: ms a request, mean / median: "
+                  f"policy {mean['policy']:.3f} / {med['policy']:.3f}, eager "
+                  f"{mean['eager']:.3f} / {med['eager']:.3f}; a turn's first request: policy "
+                  f"{', '.join(f'{t:.2f}' for t in firsts['policy'])}, eager "
+                  f"{', '.join(f'{t:.2f}' for t in firsts['eager'])}; the rest, mean: policy "
+                  f"{rest['policy']:.3f}, eager {rest['eager']:.3f}; shapes captured a turn "
+                  f"{shapes}")
+            out.append({"case": name, "requests": requests, "sub_batch": sub,
+                        "policy_ms": mean["policy"], "eager_ms": mean["eager"],
+                        "policy_median_ms": med["policy"], "eager_median_ms": med["eager"],
+                        "policy_first_ms": firsts["policy"], "eager_first_ms": firsts["eager"],
+                        "policy_rest_ms": rest["policy"], "eager_rest_ms": rest["eager"],
+                        "shapes_captured": shapes})
+    finally:
+        search_mod._hop_graphs, search_mod.safe_query_batch = real_graphs, real_guard
+        search_mod._capture = real_capture
+        search_mod.release_hop_graphs()
+    del ix, g, queries
+    torch.cuda.empty_cache()
     return out
 
 
@@ -848,6 +1049,8 @@ def main(argv=None) -> int:
     if "hop" in cases:
         hops = args.hop.split(",")
         print(json.dumps({"card": card(), "hop": hop_cases(args.reps, hops)}))
+        print(json.dumps({"card": card(), "hop_graph": hop_graph_cases(args.reps, hops)}))
+        print(json.dumps({"card": card(), "hop_policy": hop_policy_cases(args.reps)}))
         print(json.dumps({"card": card(), "k2_at_hop": k2_hop_cases(
             args.reps, [h for h in hops if h in K2_HOP_CASES], base.get("k2"))}))
     return 0

@@ -122,9 +122,11 @@ def hop_bound(b: int, ef: int, e_f: int, m: int, hist_width: int, compact_width:
 
 class CallRecorder:
     """Stands in for a kernel wrapper where a module calls it and keeps the
-    arguments of the `nth` call that `keep(*args)` accepts since the last
-    reset (tensors cloned, except the positions `shared` names, which are
-    kept by reference); the wrapper it calls counts its own launches."""
+    positional arguments of the `nth` call that `keep(*args)` accepts since
+    the last reset (tensors cloned, except the positions `shared` names,
+    which are kept by reference; keywords, such as an `out` to write into,
+    are passed on and not kept); the wrapper it calls counts its own
+    launches."""
 
     def __init__(self, fn, keep=lambda *args: True, nth=1, shared=()):
         self.fn, self.keep, self.nth, self.shared = fn, keep, nth, shared
@@ -148,10 +150,10 @@ class CallRecorder:
             raise AttributeError(name)
         return getattr(self.fn, name)
 
-    def __call__(self, *args):
+    def __call__(self, *args, **kwargs):
         if self.keep(*args):
             self.seen += 1
             if self.seen == self.nth:
                 self.args = tuple(a.clone() if hasattr(a, "clone") and i not in self.shared else a
                                   for i, a in enumerate(args))
-        return self.fn(*args)
+        return self.fn(*args, **kwargs)

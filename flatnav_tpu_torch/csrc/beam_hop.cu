@@ -42,9 +42,16 @@
 //               everything.) The key orders floats as torch.sort does: -0.0
 //               equals +0.0, every NaN equals every other and follows +inf
 //               (K2 scores an id outside the table NaN). Adds the row's
-//               fresh count to the distance counter, and writes `stamp` to
-//               the flag where the row's new beam holds an unexpanded entry.
-// (select adds the valid selections to the hop counter.)
+//               fresh count to the distance counter, and writes the hop's
+//               number to the flag where the row's new beam holds an
+//               unexpanded entry.
+// (select adds the valid selections to the hop counter and advances the
+// hop's number, a device int32 that the merge reads: so a hop captured in a
+// CUDA graph stamps its flag anew at every replay. A search's flag is then the
+// number of the last hop after which some beam held an unexpanded entry, a
+// value that only grows: read after any later hop it still tells whether hop
+// n left one, flag >= n. The merge can also write it into pinned host memory,
+// so the host reads it with no copy once an event after the merge completes.)
 //
 // Bound on this card: bytes, and few of them. A query's stages read and
 // write its beam, history, candidates and their distances: ~48 KB at
@@ -182,8 +189,8 @@ __global__ void __launch_bounds__(THREADS)
 select_kernel(const int* __restrict__ beam_i, uint8_t* __restrict__ beam_e,
               int* __restrict__ hist, int ef, int E, int W,
               int* __restrict__ cur_ids, uint8_t* __restrict__ sel_valid,
-              unsigned long long* __restrict__ hops, unsigned char* scratch,
-              size_t scratch_row) {
+              unsigned long long* __restrict__ hops, int* __restrict__ hop_no,
+              unsigned char* scratch, size_t scratch_row) {
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* base = WS ? scratch + blockIdx.x * scratch_row : smem;
   const int pe = pow2_at_least(E);
@@ -222,6 +229,7 @@ select_kernel(const int* __restrict__ beam_i, uint8_t* __restrict__ beam_e,
   }
   for (int j = threadIdx.x; j < nsel; j += THREADS) be[pos[j]] = 1;
   if (threadIdx.x == 0 && nsel) atomicAdd(hops, (unsigned long long)nsel);
+  if (blockIdx.x == 0 && threadIdx.x == 0) ++*hop_no;
   __syncthreads();
   bitonic_sort(nv, pe);
 
@@ -373,13 +381,21 @@ membership_kernel(const float* __restrict__ beam_d, const int* __restrict__ beam
   }
 }
 
+// the flag of a row whose beam holds an unexpanded entry: the hop's number,
+// also into the host's copy where there is one (mapped pinned memory)
+__device__ __forceinline__ void stamp(int* flag, int* host_flag, int hop) {
+  *flag = hop;
+  if (host_flag) *host_flag = hop;
+}
+
 template <bool WS>
 __global__ void __launch_bounds__(THREADS)
 merge_kernel(float* __restrict__ beam_d, int* __restrict__ beam_i,
              uint8_t* __restrict__ beam_e, const float* __restrict__ scores,
              const int* __restrict__ nbrs, const uint8_t* __restrict__ fresh, int ef,
              int C, unsigned long long* __restrict__ dcomp, int* __restrict__ flag,
-             int stamp, unsigned char* scratch, size_t scratch_row) {
+             int* __restrict__ host_flag, const int* __restrict__ hop_no,
+             unsigned char* scratch, size_t scratch_row) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int n_fresh, n_new;
   unsigned char* base = WS ? scratch + blockIdx.x * scratch_row : smem;
@@ -435,7 +451,7 @@ merge_kernel(float* __restrict__ beam_d, int* __restrict__ beam_i,
   if (nn == 0) {  // the merge keeps the beam as it is
     bool unexp = false;
     for (int i = threadIdx.x; i < ef; i += THREADS) unexp |= !se[i];
-    if (__syncthreads_or(unexp) && threadIdx.x == 0) *flag = stamp;
+    if (__syncthreads_or(unexp) && threadIdx.x == 0) stamp(flag, host_flag, *hop_no);
     return;
   }
   const int pn = pow2_at_least(nn);
@@ -468,7 +484,7 @@ merge_kernel(float* __restrict__ beam_d, int* __restrict__ beam_i,
       unexp |= f;
     }
   }
-  if (__syncthreads_or(unexp) && threadIdx.x == 0) *flag = stamp;
+  if (__syncthreads_or(unexp) && threadIdx.x == 0) stamp(flag, host_flag, *hop_no);
 }
 
 // a row's working memory in each stage, in bytes (ops/beam_hop.stage_bytes
@@ -545,17 +561,20 @@ extern "C" int beam_hop_smem_limit(int* out) { return smem_limit(*out); }
 
 // beam_i [B, ef] int32; beam_e [B, ef] bool (updated); hist [B, W] int32,
 // ascending, with at least E entries -1 (updated); cur_ids [B, E] int32 and
-// sel_valid [B, E] bool out; hops: an int64 counter, added to.
+// sel_valid [B, E] bool out; hops: an int64 counter, added to; hop_no: an
+// int32, advanced by one.
 extern "C" int beam_select_launch(const void* beam_i, void* beam_e, void* hist, int B,
                                   int ef, int E, int W, void* cur_ids, void* sel_valid,
-                                  void* hops, void* ws, size_t ws_row, void* stream) {
+                                  void* hops, void* hop_no, void* ws, size_t ws_row,
+                                  void* stream) {
   if (B == 0) return 0;
   if (ef < 1 || ef > WIDTH_MAX || E < 1 || E > ef || W < E || W > WIDTH_MAX)
     return int(cudaErrorInvalidValue);
   return launch(select_kernel<false>, select_kernel<true>, select_bytes(E, W), B, ws, ws_row,
                 stream, static_cast<const int*>(beam_i), static_cast<uint8_t*>(beam_e),
                 static_cast<int*>(hist), ef, E, W, static_cast<int*>(cur_ids),
-                static_cast<uint8_t*>(sel_valid), static_cast<unsigned long long*>(hops));
+                static_cast<uint8_t*>(sel_valid), static_cast<unsigned long long*>(hops),
+                static_cast<int*>(hop_no));
 }
 
 // beam_d [B, ef] float32, beam_i [B, ef] int32, hist [B, W] int32 (sorted),
@@ -583,17 +602,26 @@ extern "C" int beam_membership_launch(const void* beam_d, const void* beam_i,
 
 // beam_d [B, ef] float32, beam_i [B, ef] int32, beam_e [B, ef] bool (all
 // updated); scores [B, C] float32, nbrs [B, C] int32, fresh [B, C] bool;
-// dcomp: an int64 counter, added to; flag: an int32 set to `stamp` where a
-// row's new beam holds an unexpanded entry.
+// dcomp: an int64 counter, added to; flag: an int32 set to the int32 at
+// hop_no (the select's count) where a row's new beam holds an unexpanded entry,
+// and so is host_flag, where not null: a device pointer to pinned host memory
+// (beam_host_mapped).
 extern "C" int beam_merge_launch(void* beam_d, void* beam_i, void* beam_e,
                                  const void* scores, const void* nbrs, const void* fresh,
-                                 int B, int ef, int C, void* dcomp, void* flag, int stamp,
-                                 void* ws, size_t ws_row, void* stream) {
+                                 int B, int ef, int C, void* dcomp, void* flag, void* host_flag,
+                                 const void* hop_no, void* ws, size_t ws_row, void* stream) {
   if (B == 0) return 0;
   if (ef < 1 || ef > WIDTH_MAX || C < 1 || C > WIDTH_MAX) return int(cudaErrorInvalidValue);
   return launch(merge_kernel<false>, merge_kernel<true>, merge_bytes(ef, C), B, ws, ws_row,
                 stream, static_cast<float*>(beam_d), static_cast<int*>(beam_i),
                 static_cast<uint8_t*>(beam_e), static_cast<const float*>(scores),
                 static_cast<const int*>(nbrs), static_cast<const uint8_t*>(fresh), ef, C,
-                static_cast<unsigned long long*>(dcomp), static_cast<int*>(flag), stamp);
+                static_cast<unsigned long long*>(dcomp), static_cast<int*>(flag),
+                static_cast<int*>(host_flag), static_cast<const int*>(hop_no));
+}
+
+// The device pointer through which a kernel writes `host`, pinned host memory
+// (cudaHostAlloc's): the merge's host_flag.
+extern "C" int beam_host_mapped(void* host, void** out) {
+  return int(cudaHostGetDevicePointer(out, host, 0));
 }

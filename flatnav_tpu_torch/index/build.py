@@ -163,7 +163,7 @@ def wave_search_select(
     insert would have seen."""
     beam = beam_search(
         vectors, links, num_nodes, new_vecs, ef=ef_construction, metric=metric,
-        num_initializations=num_initializations, expand_factor=expand_factor,
+        num_initializations=num_initializations, expand_factor=expand_factor, graph_hop=False,
     )
     kept_ids, kept_d = prune_wave(
         beam, new_vecs, num_nodes, n_valid, lambda ids: vectors[ids.long()],

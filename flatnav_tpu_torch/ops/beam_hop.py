@@ -20,8 +20,18 @@ where not valid, into E of the row's -1 slots), and the counters of
 distance computations and expansions. After every stage the two hold equal
 tensors. Membership also writes the hop's candidates as the scorer gets
 them, the score ids: the id where fresh, -1 elsewhere (K2 loads no row for
--1). The candidates keep their ids for the merge. `unexpanded_left` is the
-loop's end test, where the host waits for the card.
+-1). The candidates keep their ids for the merge.
+
+The loop's end test is a flag: select advances the hop's number and the
+merge sets the flag to it where a beam holds an unexpanded entry (0 for the
+start beams). The flag only grows, so read once hop n or a later one has
+run, it says whether hop n left an unexpanded entry (flag >= n):
+`unexpanded_after(n)`, where the host waits for the card. `BeamHop` keeps
+both on the card and no host value that a hop changes, so a hop's launches
+can be captured once in a CUDA graph and replayed at every hop
+(`index/search.py`). After `mirror(host)` its merges also write the flag
+into `host`, pinned host memory, which the host reads once an event after
+hop n has completed.
 """
 
 from __future__ import annotations
@@ -75,9 +85,10 @@ def _lib():
         p, i, z = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
         for fn, args in (
             (lib.beam_hop_smem_limit, [ctypes.POINTER(i)]),
-            (lib.beam_select_launch, [p, p, p, i, i, i, i, p, p, p, p, z, p]),
+            (lib.beam_select_launch, [p, p, p, i, i, i, i, p, p, p, p, p, z, p]),
             (lib.beam_membership_launch, [p, p, p, p, p, i, i, i, i, i, i, i, p, p, p, p, z, p]),
-            (lib.beam_merge_launch, [p, p, p, p, p, p, i, i, i, p, p, i, p, z, p]),
+            (lib.beam_merge_launch, [p, p, p, p, p, p, i, i, i, p, p, p, p, p, z, p]),
+            (lib.beam_host_mapped, [p, ctypes.POINTER(p)]),
         ):
             fn.argtypes = args
             fn.restype = ctypes.c_int
@@ -93,8 +104,11 @@ class BeamHop:
     dcomp, hops: int64 counters. All contiguous, on one card, and updated
     in place. `workspace` is the global-memory stand-in for shared memory
     (None where every stage fits shared memory). `membership` also fills
-    `score_ids`. `BeamHop.launches` counts the kernels' launches; counter
-    `search.hops_fused` one a merge."""
+    `score_ids`. The kernels launch on the stream that is current when the
+    engine is built. `BeamHop.launches` counts the kernels' launches;
+    counter `search.hops_fused` one a merge. Neither counts a launch that a
+    CUDA graph captures: the engine's `captured` counts those, and a replay
+    adds to `launches` what its graph captured."""
 
     launches = 0
 
@@ -118,10 +132,13 @@ class BeamHop:
         self.nbrs_out = torch.empty((b, cc), dtype=torch.int32, device=dev) if cc else None
         #: the candidates as the scorer gets them: the id where fresh, -1 elsewhere
         self.score_ids = torch.empty((b, cc or em), dtype=torch.int32, device=dev)
-        #: set to a hop's stamp by its merge where a beam holds an unexpanded
-        #: entry; stamp 0 stands for the beams the search starts from
-        self.flag = torch.where((~beam_e).any(), 0, -1).to(torch.int32)
-        self.stamp = 0
+        #: [the hop's number, advanced by select; the flag, set to that
+        #: number by the merge where a beam holds an unexpanded entry]; number
+        #: 0 stands for the beams the search starts from
+        self.marks = torch.stack([torch.zeros((), dtype=torch.int32, device=dev),
+                                  torch.where((~beam_e).any(), 0, -1).to(torch.int32)])
+        self.hop_no, self.flag = self.marks[0], self.marks[1]
+        self.captured = 0  # launches captured into CUDA graphs
         lib = _lib()
         w = hist.shape[1]
         with torch.cuda.device(dev):
@@ -133,12 +150,21 @@ class BeamHop:
         stream = torch.cuda.current_stream(dev).cuda_stream
         d, i, e, h, dc, hp = (t.data_ptr() for t in state)
         cur, sv, fr = self.cur_ids.data_ptr(), self.sel_valid.data_ptr(), self.fresh.data_ptr()
-        self._select = (lib.beam_select_launch, (i, e, h, b, ef, e_f, w, cur, sv, hp, *ws, stream))
+        no, fl = self.hop_no.data_ptr(), self.flag.data_ptr()
+        self._select = (lib.beam_select_launch,
+                        (i, e, h, b, ef, e_f, w, cur, sv, hp, no, *ws, stream))
         self._member = (lib.beam_membership_launch, (d, i, h), (
             sv, b, ef, w, em, e_f, m, cc, fr, self.nbrs_out.data_ptr() if cc else 0,
             self.score_ids.data_ptr(), *ws, stream))
-        self._merge = (lib.beam_merge_launch, (d, i, e), (fr, b, ef, cc or em, dc,
-                       self.flag.data_ptr()), (*ws, stream))
+        self._merge = (lib.beam_merge_launch, (d, i, e), (fr, b, ef, cc or em, dc, fl),
+                       (no, *ws, stream))
+        self._mirror = None  # the pinned host int32 the merges also stamp, and its device pointer
+
+    def restart(self) -> None:
+        """Starts a new search over the same tensors, which the caller has
+        filled with its start state (`index.search.entry_beam`), whose beams
+        hold an unexpanded entry: hop number and flag 0."""
+        self.marks.zero_()
 
     def select(self) -> tuple[torch.Tensor, torch.Tensor]:
         """The first e_f unexpanded positions of each beam (ascending),
@@ -149,7 +175,7 @@ class BeamHop:
         overwritten by the next hop."""
         fn, args = self._select
         _build.check(fn(*args), "BeamHop.select")
-        BeamHop.launches += 1
+        self._launched()
         return self.cur_ids, self.sel_valid
 
     def membership(self, nbrs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -165,32 +191,54 @@ class BeamHop:
                              f"{nbrs.device}, want [{self.b}, {self.em}] on the card")
         fn, head, tail = self._member
         _build.check(fn(*head, nbrs.data_ptr(), *tail), "BeamHop.membership")
-        BeamHop.launches += 1
+        self._launched()
         return (self.nbrs_out if self.cc else nbrs), self.fresh
 
-    def merge(self, scores: torch.Tensor, nbrs: torch.Tensor, stamp: int) -> None:
+    def merge(self, scores: torch.Tensor, nbrs: torch.Tensor) -> None:
         """Merges the scored candidates (`scores`, read where `fresh`; `nbrs`
         and `fresh` as `membership` returned them) into the beams: the first
         ef of beam and new entries by distance, beam entries first on ties,
         new ones by position. `dcomp` adds the fresh count; `flag` is set to
-        `stamp` (> 0, a new one a hop) where a new beam holds an unexpanded
-        entry."""
+        the hop's number (the selects so far) where a new beam holds an
+        unexpanded entry."""
         if scores.dtype != torch.float32 or not scores.is_contiguous():
             scores = scores.to(torch.float32).contiguous()
         if scores.shape != self.fresh.shape or nbrs.shape != self.fresh.shape:
             raise ValueError(f"BeamHop.merge: scores {tuple(scores.shape)}, candidates "
                              f"{tuple(nbrs.shape)}, want {tuple(self.fresh.shape)}")
-        fn, head, tail, last = self._merge
-        rc = fn(*head, scores.data_ptr(), nbrs.data_ptr(), *tail, stamp, *last)
+        fn, head, mid, tail = self._merge
+        mirror = self._mirror[1] if self._mirror else 0
+        rc = fn(*head, scores.data_ptr(), nbrs.data_ptr(), *mid, mirror, *tail)
         _build.check(rc, "BeamHop.merge")
-        BeamHop.launches += 1
-        self.stamp = stamp
-        count("search.hops_fused", 1)
+        if self._launched():
+            count("search.hops_fused", 1)
 
-    def unexpanded_left(self) -> bool:
-        """Whether some beam still holds an unexpanded entry after the last
-        merge (one scalar copy from the card)."""
-        return int(self.flag) == self.stamp
+    def mirror(self, host: torch.Tensor) -> None:
+        """Makes the merges that follow also write the flag into `host`, a
+        pinned int32 on the host, which the host reads once an event after
+        the merge has completed: a captured hop hands the host its flag with
+        no copy."""
+        if not (host.is_pinned() and host.dtype == torch.int32 and host.numel() == 1):
+            raise ValueError("BeamHop.mirror: wants one pinned int32 on the host")
+        ptr = ctypes.c_void_p()
+        _build.check(_lib().beam_host_mapped(host.data_ptr(), ctypes.byref(ptr)),
+                     "BeamHop.mirror")
+        self._mirror = (host, ptr.value)
+
+    def unexpanded_after(self, n: int) -> bool:
+        """Whether hop n left a beam with an unexpanded entry (n = 0: the
+        start beams), read once hop n's merge is queued: one scalar copy
+        from the card, which waits for all that is queued."""
+        return int(self.flag) >= n
+
+    def _launched(self) -> bool:
+        """Counts a launch in `launches`, or in `captured` where a CUDA
+        graph is capturing it -> whether `launches` counted it."""
+        if torch.cuda.is_current_stream_capturing():
+            self.captured += 1
+            return False
+        BeamHop.launches += 1
+        return True
 
 
 def _first_occurrence(ids: torch.Tensor) -> torch.Tensor:
@@ -227,6 +275,9 @@ class ChainHop:
         self.pos = torch.arange(beam_i.shape[1], device=beam_i.device)
         self.new_slots = torch.arange(e_f, device=beam_i.device)
         self.sel_valid = self.fresh = self.score_ids = None
+        #: `BeamHop`'s flag; the hop's number is counted on the host
+        self.flag = torch.where((~beam_e).any(), 0, -1).to(torch.int32)
+        self.hop_no = 0
 
     def select(self) -> tuple[torch.Tensor, torch.Tensor]:
         """`BeamHop.select`: the history's E slots of -1 that follow any
@@ -248,6 +299,7 @@ class ChainHop:
         self.hist.copy_(self.hist.sort(dim=1).values)
         self.hops += sel_valid.sum()
         self.sel_valid = sel_valid
+        self.hop_no += 1
         return cur_ids, sel_valid
 
     def membership(self, nbrs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -266,7 +318,7 @@ class ChainHop:
         self.score_ids = torch.where(fresh, nbrs, -1)
         return nbrs, fresh
 
-    def merge(self, scores: torch.Tensor, nbrs: torch.Tensor, stamp: int) -> None:
+    def merge(self, scores: torch.Tensor, nbrs: torch.Tensor) -> None:
         """`BeamHop.merge`: the new entries (+inf where not fresh) sorted
         stably, ef of them kept and merged into the beams."""
         ef = self.pos.shape[0]
@@ -279,11 +331,11 @@ class ChainHop:
         for t, a in zip(beam, (all_d, all_i, all_e)):
             t.copy_(a.gather(1, order))
         self.dcomp += self.fresh.sum()
+        self.flag.masked_fill_((~self.beam_e).any(), self.hop_no)
 
-    def unexpanded_left(self) -> bool:
-        """Whether some beam still holds an unexpanded entry (a reduction
-        and one scalar copy)."""
-        return bool((~self.beam_e).any())
+    def unexpanded_after(self, n: int) -> bool:
+        """`BeamHop.unexpanded_after`."""
+        return int(self.flag) >= n
 
 
 __all__ = ["BeamHop", "ChainHop", "make_hop", "scratch_row", "stage_bytes"]

@@ -55,20 +55,29 @@ def gather_distances(
     ids: torch.Tensor,
     queries: torch.Tensor,
     metric: MetricType = MetricType.L2,
+    *,
+    out: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """`dist(queries[b], vectors[ids[b, c]])` -> [B, C] float32.
 
     vectors: [N, d] float32/bfloat16/float16, any d; ids: [B, C]
     int32 in [0, N) (the kernel scores an id outside that range NaN and
     loads no row for it: the search hands it -1 where a candidate is not
-    fresh); queries: [B, d].
+    fresh); queries: [B, d]. `out`: a contiguous [B, C] float32 tensor on
+    the table's device to write into and return (the search's hop binds
+    one for all its calls); None: a new one.
     `gather_distances.launches` counts kernel launches."""
+    b, c = ids.shape
+    if out is not None and not (out.shape == (b, c) and out.dtype == torch.float32
+                                and out.is_contiguous() and out.device == vectors.device):
+        raise ValueError(f"gather_distances: out {tuple(out.shape)} {out.dtype} on {out.device}, "
+                         f"want a contiguous [{b}, {c}] float32 on {vectors.device}")
     if vectors.device.type == "cpu":
-        return gather_distances_plain(vectors, ids, queries, metric)
+        got = gather_distances_plain(vectors, ids, queries, metric)
+        return got if out is None else out.copy_(got)
     if vectors.dtype not in _VEC_TYPES:
         raise TypeError(f"gather_distances: unsupported table dtype {vectors.dtype}")
     n, d = vectors.shape
-    b, c = ids.shape
     if queries.shape != (b, d):
         raise ValueError(f"queries {tuple(queries.shape)} do not match ids {b} x d {d}")
     if not (ids.device == queries.device == vectors.device):
@@ -76,7 +85,8 @@ def gather_distances(
     vectors = vectors.contiguous()
     ids = ids.to(torch.int32).contiguous()
     q = queries.to(torch.float32).contiguous()
-    out = torch.empty((b, c), dtype=torch.float32, device=vectors.device)
+    if out is None:
+        out = torch.empty((b, c), dtype=torch.float32, device=vectors.device)
     rc = _lib()(
         vectors.data_ptr(), _VEC_TYPES[vectors.dtype], ids.data_ptr(),
         q.data_ptr(), n, d, b, c, int(metric == MetricType.IP),

@@ -63,7 +63,8 @@ class ReplicatedWave(LocalWave):
         score, _ = table_blocks(g.vectors, new_vecs[lo:hi], metric)
         _, entry_all = table_blocks(g.vectors, new_vecs, metric)
         return beam_search_core(
-            g.links, g.num_nodes, hi - lo, score, lambda c: entry_all(c)[lo:hi], **kw
+            g.links, g.num_nodes, hi - lo, score, lambda c: entry_all(c)[lo:hi], graph_hop=False,
+            **kw
         )
 
     def _rows(self, ids):

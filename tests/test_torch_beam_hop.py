@@ -77,7 +77,9 @@ def test_chain_matches_jax_hop(kind, handed, expand, compact_width, max_hops, mo
     score = record(score) if handed == "score_ids" else every_candidate(score)
     got = beam_search_core(torch.from_numpy(links), cases.N, cases.B, score, entry, **kw)
     if handed == "score_ids":  # -1 at exactly the slots that are not fresh
-        assert len(hops) == len(scored) > 0
+        # a search run to its end opens one hop past it (a no-op, never scored)
+        assert len(scored) > 0 and len(hops) == len(scored) + (max_hops == 0)
+        assert not any(f.any() for _, f in hops[len(scored):])
         for (nbrs, fresh), ids in zip(hops, scored):
             assert torch.equal(ids, torch.where(fresh, nbrs, -1))
     np.testing.assert_array_equal(got.dists.view(torch.int32).numpy(),
@@ -186,7 +188,8 @@ def test_chain_hop_stepped_by_hand_gives_the_search(compact_width):
     # the engine's interface as bench/kernel_ab.hop_lockstep drives it: the
     # entry state, then select, the links gather, membership, scoring the
     # score ids and merge until the end test fails, give `beam_search_core`'s
-    # results bit for bit
+    # results bit for bit; the search, which reads its end test a hop late,
+    # hands the scorer one spare hop's slots more
     links, table = cases.make("dups")
     links = torch.from_numpy(links)
     score, entry = cases.torch_blocks(torch.from_numpy(table))
@@ -195,18 +198,18 @@ def test_chain_hop_stepped_by_hand_gives_the_search(compact_width):
         *search_mod.entry_beam(entry, cases.N, cases.B, EF, hop_cap * e_f, NI, "cpu"),
         e_f=e_f, m=cases.M, compact_width=compact_width)
     it = slots = 0
-    while it < hop_cap and hop.unexpanded_left():
+    while it < hop_cap and hop.unexpanded_after(it):
         cur_ids, _ = hop.select()
         nbrs, _ = hop.membership(links[cur_ids.reshape(-1).long()].reshape(cases.B, -1))
         slots += hop.score_ids.numel()
-        hop.merge(score(hop.score_ids), nbrs, it + 1)
+        hop.merge(score(hop.score_ids), nbrs)
         it += 1
     want = beam_search_core(links, cases.N, cases.B, score, entry, ef=EF, num_initializations=NI,
                             expand_factor=e_f, compact_width=compact_width)
-    assert it > 1 and torch.equal(hop.hist, hop.hist.sort(dim=1).values)
+    assert 1 < it < hop_cap and torch.equal(hop.hist, hop.hist.sort(dim=1).values)
     assert torch.equal(hop.beam_d.view(torch.int32), want.dists.view(torch.int32))
     assert torch.equal(hop.beam_i, want.ids) and torch.equal(hop.beam_e, want.expanded)
-    assert (int(hop.dcomp), int(hop.hops), slots) == (
+    assert (int(hop.dcomp), int(hop.hops), slots + hop.score_ids.numel()) == (
         int(want.dist_computations), int(want.hops), want.slots)
 
 
@@ -246,7 +249,8 @@ def test_searches_unchanged_by_score_ids(table, monkeypatch):
 
     wrap = record
     got = search()
-    assert len(hops) == len(scored) > 1
+    # the hop the search opens past the end (a no-op) is never scored
+    assert len(hops) == len(scored) + 1 and len(scored) > 1 and not hops[-1][1].any()
     fresh_all = torch.cat([f.flatten() for _, f in hops])
     assert fresh_all.any() and not fresh_all.all()  # both kinds of slot were there
     for (nbrs, fresh), ids in zip(hops, scored):
@@ -276,6 +280,85 @@ def test_k2_slot_counters(dtype, monkeypatch):
                              num_initializations=ni, expand_factor=4)
     counters = profiling.snapshot(reset=True)["counters"]
     live = counters["search.dist_computations"] - counters["search.queries"] * (ni + 1)
-    assert counters["search.k2_slots"] == sum(f.numel() for _, f in hops)
+    # the hop the search opens past the end (a no-op) is never scored
+    assert not hops[-1][1].any()
+    assert counters["search.k2_slots"] == sum(f.numel() for _, f in hops[:-1])
     assert live == sum(int(f.sum()) for _, f in hops) == res.dist_computations - b * (ni + 1)
     assert 0 < live < counters["search.k2_slots"]
+
+
+def _converged(kind, expand, compact_width):
+    """A chain searched until no beam holds an unexpanded entry, with the
+    loop's links gather and scorer."""
+    links, table = cases.make(kind)
+    links = torch.from_numpy(links)
+    score, entry = cases.torch_blocks(torch.from_numpy(table))
+    hop_cap = 4 * search_mod._hop_cap(EF, expand)
+    hop = beam_hop.ChainHop(
+        *search_mod.entry_beam(entry, cases.N, cases.B, EF, hop_cap * expand, NI, "cpu"),
+        e_f=expand, m=cases.M, compact_width=compact_width)
+
+    def links_block(ids):
+        return links[ids.reshape(-1).long()].reshape(cases.B, -1)
+
+    it = 0
+    while it < hop_cap and hop.unexpanded_after(it):
+        nbrs = search_mod._open_hop(hop, links_block)
+        search_mod._close_hop(hop, score(hop.score_ids), nbrs)
+        it += 1
+    assert it < hop_cap
+    return hop, links_block, score, it
+
+
+@pytest.mark.parametrize("compact_width", [0, CW], ids=["uncompacted", "compacted"])
+@pytest.mark.parametrize("expand", [1, 4], ids=["E1", "E4"])
+@pytest.mark.parametrize("kind", cases.KINDS)
+def test_a_hop_after_the_end_changes_nothing(kind, expand, compact_width):
+    # the search reads its end test a hop late, so one hop runs on beams
+    # with no unexpanded entry: it selects nothing, hands the scorer no
+    # fresh candidate (-1 in every slot) and leaves the state, the counters
+    # and the end flag as they were
+    hop, links_block, score, it = _converged(kind, expand, compact_width)
+    flag = int(hop.flag)
+    state = [t.clone() for t in (hop.beam_d, hop.beam_i, hop.beam_e, hop.hist, hop.dcomp, hop.hops)]
+    nbrs = search_mod._open_hop(hop, links_block)
+    assert not hop.sel_valid.any() and bool((hop.score_ids == -1).all())
+    search_mod._close_hop(hop, score(hop.score_ids), nbrs)
+    after = (hop.beam_d, hop.beam_i, hop.beam_e, hop.hist, hop.dcomp, hop.hops)
+    assert torch.equal(after[0].view(torch.int32), state[0].view(torch.int32))
+    assert all(torch.equal(a, s) for a, s in zip(after[1:], state[1:]))
+    assert int(hop.flag) == flag < it and not hop.unexpanded_after(it + 1)
+
+
+@pytest.mark.parametrize("max_hops", [1, 2, 0], ids=["hop1", "hop2", "to_the_end"])
+@pytest.mark.parametrize("expand", [1, 4], ids=["E1", "E4"])
+@pytest.mark.parametrize("kind", cases.KINDS)
+def test_end_test_a_hop_late_gives_the_search(kind, expand, max_hops):
+    # the search's loop (`_late_hops`) reads hop n's end flag after issuing
+    # hop n + 1; it gives the results of a loop that tests the end before
+    # each hop, bit for bit, with one spare hop where the beams converged
+    # before the cap and none where the cap stopped it
+    links, table = cases.make(kind)
+    links = torch.from_numpy(links)
+    score, entry = cases.torch_blocks(torch.from_numpy(table))
+    hop_cap = max_hops or search_mod._hop_cap(EF, expand)
+    hop = beam_hop.ChainHop(
+        *search_mod.entry_beam(entry, cases.N, cases.B, EF, hop_cap * expand, NI, "cpu"),
+        e_f=expand, m=cases.M)
+    it = 0
+    while it < hop_cap and hop.unexpanded_after(it):
+        nbrs = search_mod._open_hop(hop, lambda ids: links[ids.reshape(-1).long()].reshape(
+            cases.B, -1))
+        search_mod._close_hop(hop, score(hop.score_ids), nbrs)
+        it += 1
+    profiling.snapshot(reset=True)
+    with profiling.tracing():
+        got = beam_search_core(links, cases.N, cases.B, score, entry, ef=EF,
+                               num_initializations=NI, expand_factor=expand, max_hops=max_hops)
+    snap = profiling.snapshot(reset=True)
+    issued = snap["spans"]["search.hop"]["calls"]
+    spare = snap["counters"].get("search.hops_spare", 0)
+    assert issued == it + spare and spare == int(it < hop_cap)
+    assert torch.equal(hop.beam_d.view(torch.int32), got.dists.view(torch.int32))
+    assert torch.equal(hop.beam_i, got.ids) and torch.equal(hop.beam_e, got.expanded)
+    assert (int(hop.dcomp), int(hop.hops)) == (int(got.dist_computations), int(got.hops))

@@ -201,3 +201,18 @@ def test_carry_stack_order_is_the_fixed_tree(rng, d):
     want = _tree_sum_last(torch.from_numpy(terms)).numpy()
     got = _carry_stack_tree(terms)
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tm", [MetricType.L2, MetricType.IP])
+def test_out_gets_the_same_values(rng, tm, dtype):
+    # the search's captured hop hands K2 the tensor its merge reads; on the
+    # CPU the plain version writes its result there and returns it
+    vectors, ids, queries = _case(rng, 200, 6, 40, 24)
+    v, i, q = torch.from_numpy(vectors).to(dtype), torch.from_numpy(ids), torch.from_numpy(queries)
+    out = torch.full((6, 40), 7.0)
+    got = gather_distances(v, i, q, tm, out=out)
+    assert got is out
+    assert torch.equal(out.view(torch.int32), gather_distances(v, i, q, tm).view(torch.int32))
+    with pytest.raises(ValueError, match="out"):
+        gather_distances(v, i, q, tm, out=torch.empty((6, 39)))

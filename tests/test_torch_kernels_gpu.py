@@ -714,8 +714,8 @@ def test_gather_distances_at_compact_width(cuda, cw, monkeypatch):
     g = ix.graph
     calls = []
 
-    def spy(vectors, ids, queries, metric):
-        got = gather_distances(vectors, ids, queries, metric)
+    def spy(vectors, ids, queries, metric, **kw):  # the search's hop hands K2 its `out`
+        got = gather_distances(vectors, ids, queries, metric, **kw)
         calls.append(ids.shape[1])
         live = ids >= 0
         want = gather_distances_plain(vectors, ids.clamp_min(0), queries, metric)
@@ -1184,15 +1184,16 @@ def test_beam_hop_merge_orders_as_torch_sort(cuda, ef, c):
     state = (beam_d, beam_i, beam_e, hist, dcomp, dcomp.clone())
     want = ChainHop(*(t.clone() for t in state), e_f=1, m=c)
     want.fresh = fresh
-    want.merge(s, nbrs, 7)
+    want.merge(s, nbrs)
     hop = BeamHop(*state, e_f=1, m=c)
     hop.fresh.copy_(fresh)
-    hop.merge(s, nbrs, 7)
+    hop.marks.copy_(torch.tensor([7, 0], dtype=torch.int32))  # the merge of hop 7
+    hop.merge(s, nbrs)
     assert _same_bits(beam_d, want.beam_d) and torch.equal(beam_i, want.beam_i)
     assert torch.equal(beam_e, want.beam_e)
     assert int(dcomp) == int(want.dcomp) == int(fresh.sum())
-    assert int(hop.flag) == (7 if want.unexpanded_left() else 0)
-    assert hop.unexpanded_left() == want.unexpanded_left()
+    left = bool((~want.beam_e).any())
+    assert int(hop.flag) == (7 if left else 0) and hop.unexpanded_after(7) == left
 
 
 def _clustered_graph(cuda, n, d, m, b, seed=3):
@@ -1348,6 +1349,7 @@ def test_shapes_past_the_plan_run_the_kernels_equal_to_the_chain(cuda, monkeypat
     # wide beams and long histories: every stage at every hop, and the whole
     # search, equal to the chain; a row too large for shared memory runs on
     # the global-memory workspace
+    from flatnav_tpu_torch.index import search as search_mod
     from flatnav_tpu_torch.index.search import batched_search, table_blocks
     from flatnav_tpu_torch.ops.beam_hop import BeamHop
     from flatnav_tpu_torch.utils import profiling
@@ -1361,15 +1363,216 @@ def test_shapes_past_the_plan_run_the_kernels_equal_to_the_chain(cuda, monkeypat
                           hop_cap=kw.get("max_hops", 0))
     assert hops > 1 and (hop.workspace is not None) is spills
     del hop
-    launches = BeamHop.launches
-    profiling.snapshot(reset=True)
-    with profiling.tracing():
-        fused = batched_search(vectors, links, labels, n, queries, **kw)
-    snap = profiling.snapshot(reset=True)
-    hop_calls = sum(r["calls"] for p, r in snap["spans"].items() if p.endswith("search.hop"))
-    assert snap["counters"]["search.hops_fused"] == hop_calls > 1
-    assert BeamHop.launches - launches == 3 * hop_calls
+    _no_kept_hop()
+    cap = kw.get("max_hops") or search_mod._hop_cap(kw["ef"], kw["expand_factor"])
+    found = []
+    for graphed in (False, True):  # the shape's first search, then its capture
+        launches = BeamHop.launches
+        profiling.snapshot(reset=True)
+        with profiling.tracing():
+            found.append(batched_search(vectors, links, labels, n, queries, **kw))
+        snap = profiling.snapshot(reset=True)
+        hop_calls = sum(r["calls"] for p, r in snap["spans"].items() if p.endswith("search.hop"))
+        assert snap["counters"]["search.hops_fused"] == hop_calls > 1
+        assert snap["counters"].get("search.hops_graphed", 0) == hop_calls * graphed
+        # three kernels a hop, and the select and membership of the hop
+        # opened past the end where the search stopped before the cap; a
+        # replay counts the launches its graph captured
+        assert BeamHop.launches - launches == 3 * hop_calls + 2 * (hop_calls < cap)
     _chain_only(monkeypatch)
     chain = batched_search(vectors, links, labels, n, queries, **kw)
-    assert _same_bits(fused.dists, chain.dists) and torch.equal(fused.labels, chain.labels)
-    assert (fused.dist_computations, fused.hops) == (chain.dist_computations, chain.hops)
+    for fused in found:
+        assert _same_bits(fused.dists, chain.dists) and torch.equal(fused.labels, chain.labels)
+        assert (fused.dist_computations, fused.hops) == (chain.dist_computations, chain.hops)
+
+
+def _no_kept_hop():
+    """Frees every card's captured hop and forgets the shapes searched last,
+    so that a test's first search of a shape runs eagerly and its second
+    captures."""
+    from flatnav_tpu_torch.index import search as search_mod
+
+    search_mod.release_hop_graphs()
+    search_mod._LAST_KEY.clear()
+
+
+def _eager_links(links, b):
+    """The table's links gather as a caller's own `links_block`: the search
+    then issues every stage of every hop itself, the end test before each."""
+    def links_block(ids):
+        return torch.index_select(links, 0, ids.view(-1)).view(b, -1)
+
+    return links_block
+
+
+def _traced(fn):
+    """-> (fn(), the tracer's snapshot of it: spans, counters)."""
+    from flatnav_tpu_torch.utils import profiling
+
+    profiling.snapshot(reset=True)
+    with profiling.tracing():
+        out = fn()
+    return out, profiling.snapshot(reset=True)
+
+
+def _hop_spans(snap) -> int:
+    return sum(r["calls"] for p, r in snap["spans"].items() if p.endswith("search.hop"))
+
+
+@pytest.mark.parametrize("d,ef,e_f,b,metric,max_hops", [
+    (128, 512, 64, 1000, "l2", 0), (960, 192, 16, 1000, "l2", 0), (100, 1536, 64, 1000, "ip", 0),
+    (128, 100, 32, 8192, "l2", 0), (128, 512, 64, 1000, "l2", 4), (32, 64, 16, 64, "l2", 200),
+], ids=["sift_cell", "gist_cell", "glove_cell", "wave", "cut", "converges"])
+def test_graphed_hop_equals_the_eager_kernels(cuda, d, ef, e_f, b, metric, max_hops):
+    # the hop replayed as CUDA graphs gives the eager kernels' search bit for
+    # bit (beams, ids, expanded marks, counters, slots), both reading the end
+    # test a hop late: one spare hop where the beams converge before the cap
+    # ("converges"), none where the cap stops it ("cut"). A shape's first
+    # search runs eagerly and captures nothing, its second captures head,
+    # step and tail, and a third captures nothing and gives the same
+    from flatnav_tpu_torch.index import search as search_mod
+
+    n = 100_000
+    vectors, queries, links = _clustered_graph(cuda, n, d, 32, b)
+    kind = MetricType.IP if metric == "ip" else MetricType.L2
+    if metric == "ip":
+        vectors = vectors / torch.linalg.vector_norm(vectors, dim=1, keepdim=True)
+        queries = queries / torch.linalg.vector_norm(queries, dim=1, keepdim=True)
+    score, entry = search_mod.table_blocks(vectors, queries, kind)
+    kw = dict(ef=ef, num_initializations=100, expand_factor=e_f, max_hops=max_hops)
+    eager, eager_snap = _traced(lambda: search_mod.beam_search_core(
+        links, n, b, score, entry, links_block=_eager_links(links, b), **kw))
+    _no_kept_hop()
+    first, snap = _traced(lambda: search_mod.beam_search_core(links, n, b, score, entry, **kw))
+    assert not {"search.hop_captures", "search.hops_graphed"} & set(snap["counters"])
+    launches = gather_distances.launches
+    got, snap = _traced(lambda: search_mod.beam_search_core(links, n, b, score, entry, **kw))
+    counters, hops = snap["counters"], _hop_spans(snap)
+    for res in (first, got):
+        assert _same_bits(res.dists, eager.dists) and torch.equal(res.ids, eager.ids)
+        assert torch.equal(res.expanded, eager.expanded) and res.slots == eager.slots
+        assert (int(res.dist_computations), int(res.hops)) == (int(eager.dist_computations),
+                                                             int(eager.hops))
+    spare = counters.get("search.hops_spare", 0)
+    assert spare == eager_snap["counters"].get("search.hops_spare", 0)
+    assert counters["search.hop_captures"] == 3  # head, step and tail of a new shape
+    assert counters["search.hops_graphed"] == counters["search.hops_fused"] == hops
+    assert hops == _hop_spans(eager_snap) and gather_distances.launches - launches == hops
+    cap = max_hops or search_mod._hop_cap(ef, e_f)
+    if max_hops == 4:
+        assert hops == 4 and spare == 0
+    if max_hops == 200:
+        assert hops < cap and spare == 1
+    again, snap = _traced(lambda: search_mod.beam_search_core(links, n, b, score, entry, **kw))
+    assert "search.hop_captures" not in snap["counters"]
+    assert _same_bits(again.dists, got.dists) and torch.equal(again.ids, got.ids)
+    assert got.dists.data_ptr() != again.dists.data_ptr()  # results are copies
+
+
+def test_graphed_hop_keeps_one_shape_a_card(cuda):
+    # a card keeps one captured hop: a shape is captured the second time in
+    # a row that the card searches it, freeing the old one; a shape searched
+    # once in between runs eagerly and leaves the kept one; a release frees
+    # everything
+    import weakref
+
+    from flatnav_tpu_torch.index import search as search_mod
+
+    n, b = 20_000, 64
+    vectors, queries, links = _clustered_graph(cuda, n, 32, 16, b)
+    score, entry = search_mod.table_blocks(vectors, queries, MetricType.L2)
+    _no_kept_hop()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda)
+    idx = torch.device(cuda).index or 0
+
+    def search(ef):
+        search_mod.beam_search_core(links, n, b, score, entry, ef=ef, expand_factor=16)
+        return search_mod._GRAPHED.get(idx)
+
+    assert search(64) is None  # a first search: eager
+    kept = weakref.ref(search(64))  # the second in a row: captured
+    assert kept() is not None and kept().key[2] == 64
+    assert search(128) is kept() and search(64) is kept()  # one search of 128 in between
+    assert search(128) is kept() and search(128) is not kept()
+    assert kept() is None and search_mod._GRAPHED[idx].key[2] == 128
+    search_mod.release_hop_graphs(cuda)
+    assert not search_mod._GRAPHED
+    assert torch.cuda.memory_allocated(cuda) == base
+
+
+@pytest.mark.parametrize("sub", [250, 300], ids=["even", "uneven"])
+def test_graphed_search_split_by_the_guard_keeps_every_sub_batch(cuda, monkeypatch, sub):
+    # the memory guard splits a request into sub-batches (250 x 4, or 300 x
+    # 3 and 100), which reuse the kept state: each sub-batch's answers are
+    # copies that the next one does not overwrite, equal to the eager
+    # kernels' split search; a later search leaves them as they are. An
+    # uneven last sub-batch runs eagerly and leaves the full one kept
+    from flatnav_tpu_torch.index import search as search_mod
+
+    n, b = 100_000, 1000
+    vectors, queries, links = _clustered_graph(cuda, n, 128, 32, b)
+    labels = torch.arange(n, dtype=torch.int32, device=cuda)
+    kw = dict(k=10, ef=512, expand_factor=64)
+    _no_kept_hop()
+    monkeypatch.setattr(search_mod, "safe_query_batch", lambda *a, **k: sub)
+    got, snap = _traced(lambda: search_mod.batched_search(vectors, links, labels, n, queries, **kw))
+    assert snap["counters"]["search.queries"] == b and snap["counters"]["search.hops_graphed"] > 0
+    kept = (got.dists.clone(), got.labels.clone())
+    _, snap = _traced(lambda: search_mod.batched_search(vectors, links, labels, n,
+                                                        queries.flip(0), **kw))
+    assert "search.hop_captures" not in snap["counters"]
+    assert search_mod._GRAPHED[torch.device(cuda).index or 0].key[1] == sub
+    assert _same_bits(got.dists, kept[0]) and torch.equal(got.labels, kept[1])
+    monkeypatch.setattr(search_mod, "_hop_graphs", lambda *a, **k: None)
+    eager, snap = _traced(lambda: search_mod.batched_search(vectors, links, labels, n, queries,
+                                                            **kw))
+    assert "search.hops_graphed" not in snap["counters"]
+    assert _same_bits(got.dists, eager.dists) and torch.equal(got.labels, eager.labels)
+    assert (got.dist_computations, got.hops) == (eager.dist_computations, eager.hops)
+
+
+def test_build_waves_keep_nothing_on_the_card(cuda, monkeypatch):
+    # a build frees the card's captured hop before its first wave (a kept
+    # state would raise each wave's prune's peak) and its waves capture
+    # nothing: search, add, search holds no more memory at the build's
+    # prunes than the same add with nothing kept before it, and the searches
+    # after the build capture again
+    import weakref
+
+    from flatnav_tpu_torch.bench.synth import clustered
+    from flatnav_tpu_torch.index import build as build_mod
+    from flatnav_tpu_torch.index import search as search_mod
+
+    data, q = clustered(20_000, 64, 1000, seed=7, centers_per_64k=26)
+    idx = torch.device(cuda).index or 0
+    at_prune, prune = [], build_mod.prune_wave
+
+    def spy(*args, **kwargs):
+        at_prune.append((torch.cuda.memory_allocated(cuda), len(search_mod._GRAPHED)))
+        return prune(*args, **kwargs)
+
+    monkeypatch.setattr(build_mod, "prune_wave", spy)
+    peaks = {}
+    for kept in (False, True):
+        _no_kept_hop()
+        ix = flatnav_tpu_torch.index.create("l2", 64, 20_000, 16)
+        ix.add(data[:10_000], ef_construction=100)
+        if kept:
+            for _ in range(2):  # the shape's second search captures it
+                ix.search(q, K=10, ef_search=256)
+            entry = weakref.ref(search_mod._GRAPHED[idx])
+            kept_bytes = sum(t.numel() * t.element_size() for t in entry().state)
+        at_prune.clear()
+        _, snap = _traced(lambda: ix.add(data[10_000:], ef_construction=100))
+        assert snap["counters"]["search.hops_fused"] > 0
+        assert "search.hop_captures" not in snap["counters"]
+        assert at_prune and all(held == 0 for _, held in at_prune)
+        peaks[kept] = max(mem for mem, _ in at_prune)
+        if kept:
+            assert entry() is None
+            _, snap = _traced(lambda: [ix.search(q, K=10, ef_search=256) for _ in range(2)])
+            assert snap["counters"]["search.hop_captures"] == 3 and idx in search_mod._GRAPHED
+        del ix
+    search_mod.release_hop_graphs()
+    assert peaks[True] - peaks[False] < kept_bytes

@@ -298,7 +298,9 @@ def test_index_calls_make_the_span_tree(built, call):
     assert [r["name"] for r in snap["requests"]] == [top]
     if call == "search":
         hop = snap["spans"]["index.search/search/search.hop"]
-        assert snap["spans"]["index.search/search/search.hop/search.hop.end"]["calls"] == hop["calls"]
+        # the end test reads the hop before, from hop 2 on
+        assert snap["spans"]["index.search/search/search.hop/search.hop.end"]["calls"] == (
+            hop["calls"] - 1)
         assert hop["wait_ns"] == snap["spans"]["index.search/search/search.hop/search.hop.end"]["total_ns"]
     if call == "add":
         assert snap["counters"]["build.nodes"] == len(_DATA) - 1  # the first node takes no wave
@@ -315,11 +317,12 @@ def test_search_counters_equal_search_results(built):
                              expand_factor=4)
     snap = prof.snapshot()
     c = snap["counters"]
-    # the toy search converges well before its hop cap; K2 is handed B x E*M
-    # slots a hop
+    # the toy search converges well before its hop cap, so it issues one
+    # spare hop; K2 is handed B x E*M slots a hop
     hop_calls = snap["spans"]["search/search.hop"]["calls"]
     assert c == {"search.queries": len(_Q), "search.hops": res.hops,
                  "search.dist_computations": res.dist_computations, "search.hop_capped": 0,
+                 "search.hops_spare": 1,
                  "search.k2_slots": hop_calls * len(_Q) * 4 * g.links.shape[1]}
 
 
